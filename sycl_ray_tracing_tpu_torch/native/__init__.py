@@ -1,0 +1,102 @@
+"""Native binned-SAH builder, loaded with ctypes (counterpart of
+sycl_ray_tracing_tpu/native/__init__.py:21-101).
+
+The C++ source is the JAX package's ``native/bvh_builder.cpp``, read by
+path and never copied.  At first use it is compiled with g++ into this
+package's ``build/`` directory (which .gitignore lists).  A build failure
+raises: the cluster build never falls back to Morton order unless the
+caller asks for ``order="morton"``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+BUILD_DIR = PKG_DIR / "build"
+SOURCE = PKG_DIR.parent / "sycl_ray_tracing_tpu" / "native" / "bvh_builder.cpp"
+# no -march=native: the SAH split choices must not depend on the host's
+# FMA contraction, so every machine builds the same cluster order
+CXXFLAGS = ["-O3", "-fPIC", "-shared", "-std=c++20", "-ffp-contract=off"]
+
+_lib = None
+
+
+def build_shared_library(sources, out_prefix: str, compiler: list,
+                         flags: list) -> Path:
+    """Compile ``sources`` into BUILD_DIR/<prefix>_<hash>.so, once per
+    content hash of sources and flags.  The library is written under a
+    temporary name and renamed into place, so concurrent builders (test
+    workers) never load a half-written file.  Raises on failure."""
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(Path(src).read_bytes())
+    h.update(" ".join(compiler + flags).encode())
+    out = BUILD_DIR / f"{out_prefix}_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = compiler + flags + ["-o", tmp] + [str(s) for s in sources]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"build of {out.name} failed ({' '.join(cmd)}):\n"
+                f"{res.stdout}{res.stderr}"
+            )
+        (BUILD_DIR / f"{out.stem}.log").write_text(res.stdout + res.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """Build (at first use) and load the SAH builder; raises on failure."""
+    global _lib
+    if _lib is None:
+        if not SOURCE.exists():
+            raise FileNotFoundError(f"native SAH builder source missing: {SOURCE}")
+        path = build_shared_library([SOURCE], "libsrt_native", ["g++"], CXXFLAGS)
+        lib = ctypes.CDLL(str(path))
+        lib.bvh_build.restype = ctypes.c_int32
+        lib.bvh_build.argtypes = [
+            ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ]
+        lib.bvh_flatten.restype = ctypes.c_int32
+        lib.bvh_flatten.argtypes = [ctypes.c_void_p] * 3
+        _lib = lib
+    return _lib
+
+
+def sah_build(triangles: np.ndarray, leaf_size: int = 4):
+    """Binned-SAH build.  Returns (nodes_box [M,8] f32, nodes_meta [M,4]
+    i32, slot_order [num_leaves*leaf_size] i32); raises on failure."""
+    lib = load()
+    tris = np.ascontiguousarray(triangles, np.float32).reshape(-1, 9)
+    num_nodes = ctypes.c_int32(0)
+    num_leaves = ctypes.c_int32(0)
+    rc = lib.bvh_build(tris.ctypes.data, tris.shape[0], leaf_size,
+                       ctypes.byref(num_nodes), ctypes.byref(num_leaves))
+    if rc != 0:
+        raise RuntimeError(f"bvh_build failed with code {rc}")
+    m, k = num_nodes.value, num_leaves.value
+    nodes_box = np.zeros((m, 8), np.float32)
+    nodes_meta = np.zeros((m, 4), np.int32)
+    slot_order = np.zeros((k * leaf_size,), np.int32)
+    rc = lib.bvh_flatten(nodes_box.ctypes.data, nodes_meta.ctypes.data,
+                         slot_order.ctypes.data)
+    if rc != 0:
+        raise RuntimeError(f"bvh_flatten failed with code {rc}")
+    return nodes_box, nodes_meta, slot_order

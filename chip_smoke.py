@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's main path once on one CUDA card.
+"""Drive the PyTorch + CUDA port's main path and its probe path once on
+one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. Device: the card's name and power limit (nvidia-smi), then the build
-     of every kernel of the path from the checkout's sources (nvcc for
-     csrc/listtrace.cu, g++ for the native SAH builder).
+     of every kernel from the checkout's sources, all builds started
+     together (nvcc for csrc/listtrace.cu and csrc/probes.cu, g++ for the
+     native SAH builder).
   2. Kernels vs their plain torch versions on the card, on inputs captured
      from the main path itself: the 32768-ray primary launch and the fused
      ~98k-ray 3-query launch of the first bounce (block-shared kernel), and
@@ -16,23 +18,33 @@ Phases (any failure exits non-zero):
      small ray subset.
   3. The main path: render() of the 200k-triangle dragon + HDR sky at
      512x512, 1 spp, 8 bounces, list tracer, shared estimator, 32768-ray
-     tiles — warm, with the kernels' launch counters reset just before.
+     tiles — warm, with the kernels' launch counters reset just before;
+     then one more frame with every list-kernel launch timed (CUDA events)
+     and bounded, for each kernel's time and sum of bounds per frame.
   4. One 32768-ray tile at 8 bounces with the kernels and with the plain
      versions: the radiance must be bit-identical.
+  5. The probe path: each probe kernel against its plain version at the
+     probe scripts' shapes (the per-ray kernel at 1 / 8 / 16 / 32 rays per
+     block, its lane-min form, the synthetic round in every variant and
+     sub-block count, the three feature smoke kernels, also against the
+     scripts' closed forms), then every probe sweep once
+     (python -m sycl_ray_tracing_tpu_torch.probes), with the probe
+     kernels' launch counters reset just before.
 
 The second-to-last lines are the card line and one JSON object describing
-each kernel; the last line is {"ok": true, "device": {...}}.  Without CUDA,
-or without the rest of the repository beside it, the script exits 2 and
-prints no result.
+each kernel (time, plain version's time, launches, and the bound: the
+least time an H100 could take for the same work); the last line is
+{"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
+repository beside it, the script exits 2 and prints no result.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -40,35 +52,12 @@ N_TRIS = 200_000
 W = H = 512
 BOUNCES = 8
 TILE = 32768
+LISTTRACE_CU = "sycl_ray_tracing_tpu_torch/csrc/listtrace.cu"
+PROBES_CU = "sycl_ray_tracing_tpu_torch/csrc/probes.cu"
 
 
 def log(msg: str):
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of ``fn`` over ``reps`` calls after one
-    warm-up call, by CUDA events."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 class Capture:
@@ -107,6 +96,69 @@ class Capture:
             setattr(self.lt, name, fn)
 
 
+class LaunchTimer:
+    """Times every list-kernel launch of a render with CUDA events around
+    the wrapper call (so an idle card's wait for the host's launch path
+    is included) and keeps its inputs, for its bound."""
+
+    def __init__(self, lt):
+        self.lt = lt
+        self.launches = []
+        self._orig = {}
+
+    def __enter__(self):
+        import torch
+
+        def hook(name):
+            def timed(cand, rays, tris, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = self._orig[name](cand, rays, tris, **kw)
+                end.record()
+                self.launches.append((name, start, end, cand, rays, tris))
+                return out
+            return timed
+
+        for name in ("block_tiles", "list_tiles"):
+            self._orig[name] = getattr(self.lt, name)
+            setattr(self.lt, name, hook(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.lt, name, fn)
+
+    def per_kernel(self, works, bounds) -> dict:
+        """{name: (launches, kernel ms, sum of per-launch bound ms)}."""
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for name, start, end, cand, rays, tris in self.launches:
+            n, ms, bms = out.get(name, (0, 0.0, 0.0))
+            b_ms, _by = bounds.bound(*works[name](cand, rays, tris))
+            out[name] = (n + 1, ms + start.elapsed_time(end), bms + b_ms)
+        return out
+
+
+def max_abs_err(a, b) -> float:
+    import torch
+
+    diff = (a.double() - b.double()).abs()
+    diff = diff[torch.isfinite(diff)]
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def kernel_entry(name, source, replaces, ms, plain_ms, work, err, bounds):
+    ops, nbytes = work
+    bound_ms, bound_by = bounds.bound(ops, nbytes)
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                ops=ops, bytes=nbytes)
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     try:
@@ -127,7 +179,22 @@ def main() -> int:
             intersect_triangles,
         )
         from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as lt
+        from sycl_ray_tracing_tpu_torch.ops.kernels import probes as pk
         from sycl_ray_tracing_tpu_torch.ops.tonemap import tonemap
+        from sycl_ray_tracing_tpu_torch.probes import (
+            bounds,
+            feature_smoke,
+            kernel_shape,
+            micro_round,
+        )
+        from sycl_ray_tracing_tpu_torch.probes.__main__ import (
+            PROBES,
+            run_probes,
+        )
+        from sycl_ray_tracing_tpu_torch.probes.common import (
+            card_line,
+            cuda_ms,
+        )
         from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
         from sycl_ray_tracing_tpu_torch.utils.procedural import dragon_scene
     except ImportError as e:
@@ -146,18 +213,27 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
-    # ---- phase 1: build every kernel of the path from the sources ----
+    # ---- phase 1: build every kernel from the sources, all at once ----
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    lt.load_cuda_library()
-    t1 = time.perf_counter()
-    native.load()
-    t2 = time.perf_counter()
-    log(f"phase 1 build: nvcc listtrace.cu {t1 - t0:.1f} s, "
-        f"g++ bvh_builder.cpp {t2 - t1:.1f} s")
-    for logf in sorted(native.BUILD_DIR.glob("liblisttrace_*.log")):
-        for line in logf.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"  ptxas: {line.strip()}")
+    builds = {"nvcc listtrace.cu": lt.load_cuda_library,
+              "nvcc probes.cu": pk.load_cuda_library,
+              "g++ bvh_builder.cpp": native.load}
+    with ThreadPoolExecutor(len(builds)) as ex:
+        futs = {k: ex.submit(timed, fn) for k, fn in builds.items()}
+        took = {k: f.result() for k, f in futs.items()}
+    log(f"phase 1 build: {time.perf_counter() - t0:.1f} s wall ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()) + ")")
+    for pattern in ("liblisttrace_*.log", "libprobes_*.log"):
+        for logf in sorted(native.BUILD_DIR.glob(pattern)):
+            for line in logf.read_text().splitlines():
+                if "registers" in line or "spill" in line \
+                        or "Compiling" in line:
+                    log(f"  ptxas: {line.strip()}")
 
     with torch.no_grad():
         t0 = time.perf_counter()
@@ -191,11 +267,12 @@ def main() -> int:
             blocks, key=lambda c: c[1].shape[0])
         esc_launch = max(lists, key=lambda c: c[1].shape[0])
         kernels = []
-        for name, (cand, rays), fn, plain, replaces in [
+        for name, (cand, rays), fn, plain, work, replaces in [
             ("block_tiles", bounce_launch, lt.block_tiles,
-             lt.block_tiles_plain,
+             lt.block_tiles_plain, bounds.block_tiles_work,
              "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:298"),
             ("list_tiles", esc_launch, lt.list_tiles, lt.list_tiles_plain,
+             bounds.list_tiles_work,
              "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:245"),
         ]:
             checks = [(cand, rays)]
@@ -207,9 +284,7 @@ def main() -> int:
                 at_p, ar_p = plain(c, r, tris)
                 torch.cuda.synchronize()
                 same = torch.equal(at_k, at_p) and torch.equal(ar_k, ar_p)
-                diff = (at_k - at_p).abs()
-                err = max(err, float(diff[torch.isfinite(diff)].max())
-                          if diff.numel() else 0.0)
+                err = max(err, max_abs_err(at_k, at_p))
                 log(f"phase 2 {name}: rays {r.shape[0]}, maxc "
                     f"{c.shape[1]}, bit-identical={same}")
                 if not same:
@@ -217,14 +292,18 @@ def main() -> int:
                                        f"version (max |dt| {err})")
             ms = cuda_ms(lambda: fn(cand, rays, tris), 20)
             plain_ms = cuda_ms(lambda: plain(cand, rays, tris), 3)
+            entry = kernel_entry(name, LISTTRACE_CU, replaces, ms, plain_ms,
+                                 work(cand, rays, tris), err, bounds)
+            live = (cand != tris.shape[0] - 1).sum(dim=1).float()
             log(f"phase 2 {name}: {ms:.4f} ms kernel vs {plain_ms:.4f} ms "
-                f"plain per launch at {rays.shape[0]} rays ({card})")
-            kernels.append(dict(
-                name=name, route="cuda",
-                source="sycl_ray_tracing_tpu_torch/csrc/listtrace.cu",
-                replaces=replaces, launches=0, max_abs_err=err,
-                ms=ms, plain_ms=plain_ms,
-            ))
+                f"plain per launch at {rays.shape[0]} rays, "
+                f"{cand.shape[0]} lists, {int(live.sum())} live list rounds "
+                f"(per list mean {float(live.mean()):.2f}, p90 "
+                f"{float(live.quantile(0.9)):.0f}, max {int(live.max())}); "
+                f"bound {entry['bound_ms']:.4f} ms by "
+                f"{entry['bound_by']} ({entry['ops']:.4g} operations, "
+                f"{entry['bytes']:.4g} bytes) ({card})")
+            kernels.append(entry)
 
         # _run's (t, packed, resolved, overflow): kernels == plain versions
         for label, run in (("primary", cap.runs[0]),
@@ -288,6 +367,16 @@ def main() -> int:
             raise RuntimeError(f"a kernel of the path never launched: "
                                f"{launches}")
 
+        # one more frame with every list-kernel launch timed and bounded
+        with LaunchTimer(lt) as timer:
+            pt.render(scene, cam, cfg, key)
+        works = {"block_tiles": bounds.block_tiles_work,
+                 "list_tiles": bounds.list_tiles_work}
+        for name, (n, ms, b_ms) in timer.per_kernel(works, bounds).items():
+            log(f"phase 3 per frame {name}: {n} launches, {ms:.4f} ms kernel "
+                f"(CUDA events around each launch), {b_ms:.4f} ms sum of "
+                f"per-launch bounds, {ms - b_ms:.4f} ms above them ({card})")
+
         # ---- phase 4: one 8-bounce tile, kernels vs plain versions ----
         rad_k, aux_k = pt.render_rays(scene, cam, px0, py0, W, H, tile_key,
                                       1, BOUNCES, with_aux=True)
@@ -303,6 +392,135 @@ def main() -> int:
             raise RuntimeError("tile radiance differs between kernels and "
                                "plain versions")
 
+        # ---- phase 5: the probe path ----
+        t5 = time.perf_counter()
+
+        def hold(label, kernel, plain, want=None):
+            """Kernel output == plain output (== want, a closed form)."""
+            out_k, out_p = kernel(), plain()
+            torch.cuda.synchronize()
+            pairs = list(zip(out_k, out_p)) if isinstance(out_k, tuple) \
+                else [(out_k, out_p)]
+            same = all(torch.equal(a, b) for a, b in pairs)
+            err = max(max_abs_err(a, b) for a, b in pairs)
+            closed_ok = want is None or torch.equal(out_k, want)
+            closed = "" if want is None else \
+                f", equal to the script's closed form={closed_ok}"
+            log(f"phase 5 {label}: bit-identical={same}{closed}")
+            if not (same and closed_ok):
+                raise RuntimeError(f"{label} disagrees (max |d| {err})")
+            return err
+
+        def probe_entry(name, replaces, kernel, plain, work, err, label):
+            ms = cuda_ms(kernel, 20)
+            plain_ms = cuda_ms(plain, 3)
+            entry = kernel_entry(name, PROBES_CU, replaces, ms, plain_ms,
+                                 work, err, bounds)
+            log(f"phase 5 {name}: {ms:.4f} ms kernel vs {plain_ms:.4f} ms "
+                f"plain at {label}; bound {entry['bound_ms']:.6f} ms by "
+                f"{entry['bound_by']} ({entry['ops']:.4g} operations, "
+                f"{entry['bytes']:.4g} bytes)")
+            kernels.append(entry)
+
+        # the per-ray kernel at every rays-per-block, and its lane-min form,
+        # on kernel_shape's 98,304-ray wavefront (maxc 32)
+        ks = kernel_shape.workload(scene)
+        rays5, tris5 = ks["rays"], ks["tris"]
+        cnd = kernel_shape.per_ray_lists(ks, 32)
+        at_p, ar_p = lt.list_tiles_plain(cnd, rays5, tris5)
+        for k in lt.LIST_RAYS_PER_BLOCK:
+            hold(f"list_tiles rays_per_block={k} ({cnd.shape[0]} rays, "
+                 f"maxc 32)",
+                 lambda: lt.list_tiles(cnd, rays5, tris5, rays_per_block=k),
+                 lambda: (at_p, ar_p))
+        tmin_p = at_p.amin(dim=1)
+        err = hold("list_tiles_min (lane min of list_tiles_plain)",
+                   lambda: pk.list_tiles_min(cnd, rays5, tris5),
+                   lambda: tmin_p)
+        probe_entry("list_tiles_min", "scratch/kernel_shape_bench.py:90",
+                    lambda: pk.list_tiles_min(cnd, rays5, tris5),
+                    lambda: pk.list_tiles_min(cnd, rays5, tris5,
+                                              impl="plain"),
+                    bounds.list_tiles_min_work(cnd, rays5, tris5), err,
+                    f"{cnd.shape[0]} rays, maxc 32")
+        del at_p, ar_p
+
+        # the synthetic round: every variant, every sub-block count
+        mr = micro_round.workload(dev)
+        cand_r, tris_r = mr["cand"], mr["tris"]
+        err = 0.0
+        for variant in pk.ROUND_VARIANTS:
+            plain_out = pk.round_probe(cand_r, tris_r, variant, impl="plain")
+            for sb in micro_round.SUBBLOCKS:
+                err = max(err, hold(
+                    f"round_probe {variant} sub-blocks={sb}",
+                    lambda: pk.round_probe(cand_r, tris_r, variant, sb),
+                    lambda: plain_out))
+        probe_entry("round_probe", "scratch/micro_copy.py:58",
+                    lambda: pk.round_probe(cand_r, tris_r, "dynmt"),
+                    lambda: pk.round_probe(cand_r, tris_r, "dynmt",
+                                           impl="plain"),
+                    bounds.round_probe_work(cand_r, tris_r, "dynmt"), err,
+                    f"dynmt, {cand_r.shape[0]} rays x {cand_r.shape[1]} "
+                    "rounds, 1 sub-block")
+
+        # the feature smoke kernels on the scripts' own inputs
+        g = feature_smoke.gather_inputs(dev)
+        args = (g["cid"], g["table"], g["rays"])
+        err = hold("smoke_gather", lambda: pk.smoke_gather(*args),
+                   lambda: pk.smoke_gather(*args, impl="plain"),
+                   feature_smoke.gather_want(g))
+        probe_entry("smoke_gather", "scratch/pallas_smoke.py:67",
+                    lambda: pk.smoke_gather(*args, check_values=False),
+                    lambda: pk.smoke_gather(*args, impl="plain"),
+                    bounds.smoke_gather_work(*args), err,
+                    f"{g['rays'].shape[0]} rays")
+        rs = feature_smoke.rank_select_inputs(dev)
+        args = (rs["mask"], rs["table"])
+        err = hold("smoke_rank_select", lambda: pk.smoke_rank_select(*args),
+                   lambda: pk.smoke_rank_select(*args, impl="plain"),
+                   feature_smoke.rank_select_want(rs))
+        probe_entry("smoke_rank_select", "scratch/pallas_smoke2.py:61",
+                    lambda: pk.smoke_rank_select(*args),
+                    lambda: pk.smoke_rank_select(*args, impl="plain"),
+                    bounds.smoke_rank_select_work(*args), err,
+                    "mask [8, 128]")
+        mo = feature_smoke.mosaic_inputs(dev)
+        args = (mo["ns"], mo["cand"], mo["x"])
+        err = 0.0
+        for feat in pk.MOSAIC_FEATURES:
+            err = max(err, hold(
+                f"mosaic_probe {feat}",
+                lambda: pk.mosaic_probe(*args, feat),
+                lambda: pk.mosaic_probe(*args, feat, impl="plain")))
+        probe_entry("mosaic_probe", "scratch/probe_mosaic.py:59",
+                    lambda: pk.mosaic_probe(*args, "all",
+                                            check_values=False),
+                    lambda: pk.mosaic_probe(*args, "all", impl="plain"),
+                    bounds.mosaic_probe_work(*args, "all"), err,
+                    "feature all, x [8, 128]")
+        t5h = time.perf_counter()
+
+        # every probe sweep once, the probe kernels' counters reset first
+        pk.reset_launch_counts()
+        lt.reset_launch_counts()
+        run_probes(PROBES, scene, dev, reps=3)
+        torch.cuda.synchronize()
+        probe_launches = dict(pk.LAUNCHES)
+        log(f"phase 5 probe sweeps: launches {probe_launches}, list kernels "
+            f"{dict(lt.LAUNCHES)}")
+        for k in kernels:
+            if k["name"] in probe_launches:
+                k["launches"] = probe_launches[k["name"]]
+        if min(probe_launches.values()) < 1:
+            raise RuntimeError(f"a probe kernel never launched: "
+                               f"{probe_launches}")
+        log(f"phase 5 took {time.perf_counter() - t5:.1f} s "
+            f"({t5h - t5:.1f} s checks, {time.perf_counter() - t5h:.1f} s "
+            f"sweeps), card {card}")
+
+    for k in kernels:
+        del k["ops"], k["bytes"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

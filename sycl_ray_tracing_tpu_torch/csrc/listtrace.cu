@@ -21,75 +21,29 @@
 // What bounds them on an H100: the 200k-triangle scene's tiles are
 // 1601 x 9 x 128 x 4 B = 7.4 MB, resident in the 50 MB L2, and one round
 // of the block kernel reads 4.6 KB of tile for 32 x 128 = 4096 ray-triangle
-// tests of ~40 FP32 operations each.  So the work is bound by FP32 ALU and
+// tests of ~54 FP32 operations each.  So the work is bound by FP32 ALU and
 // instruction issue, not by memory.  The design answers that with reuse:
 // a thread owns one triangle lane, loads its 9 floats once per round
 // (coalesced across the block), forms the two edges once, and reuses them
 // for all 32 rays, whose fields sit in shared memory and are read as
 // broadcasts; the 32 running (t, round) pairs live in registers.
 //
-// Arithmetic follows _mt8 (sycl_ray_tracing_tpu/ops/pallas/listtrace.py:
-// 165-194) operation for operation, with an IEEE 1.0f/a.  Built with
-// -fmad=false, so no multiply-add is contracted and t is bit-identical to
-// the plain torch version (whose elementwise ops never contract either).
+// Arithmetic: mt8.cuh, built with -fmad=false (bit-identical to the plain
+// torch versions).
 //
 // Round skipping: a kernel skips ONLY rounds whose candidate is the dummy
 // id K2 (its zero tile makes every ray parallel, so such a round never
 // updates anything).  The Pallas usefulness guard, any-hit early exit and
 // count-chunk gates are later performance work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mt8.cuh"
 
 namespace {
 
-constexpr int kLanes = 128;     // triangles per cluster tile (T_CLUSTER)
+using srt::kLanes;
+using srt::kMaxc;
+
 constexpr int kRbShare = 32;    // rays per block-shared list (RB_SHARE)
-constexpr int kMaxc = 128;      // candidate slots at most (winner packing)
-constexpr float kEps = 1e-7f;   // safe_math.EPS
-constexpr float kBigT = 3.0e38f;
-
-struct Lane {
-  float ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z;
-};
-
-__device__ __forceinline__ Lane load_lane(const float* __restrict__ tris,
-                                          int cluster, int lane) {
-  const float* p = tris + (size_t)cluster * 9 * kLanes + lane;
-  Lane L;
-  L.ax = p[0 * kLanes];
-  L.ay = p[1 * kLanes];
-  L.az = p[2 * kLanes];
-  L.e1x = p[3 * kLanes] - L.ax;
-  L.e1y = p[4 * kLanes] - L.ay;
-  L.e1z = p[5 * kLanes] - L.az;
-  L.e2x = p[6 * kLanes] - L.ax;
-  L.e2y = p[7 * kLanes] - L.ay;
-  L.e2z = p[8 * kLanes] - L.az;
-  return L;
-}
-
-// _mt8 for one (ray, lane): t of a valid hit below tl, else BIG_T.
-__device__ __forceinline__ float mt8(const Lane& L, float ox, float oy,
-                                     float oz, float dx, float dy, float dz,
-                                     float tl) {
-  const float hx = dy * L.e2z - dz * L.e2y;
-  const float hy = dz * L.e2x - dx * L.e2z;
-  const float hz = dx * L.e2y - dy * L.e2x;
-  const float a = L.e1x * hx + L.e1y * hy + L.e1z * hz;
-  const bool parallel = fabsf(a) < kEps;
-  const float f = 1.0f / (parallel ? 1.0f : a);
-  const float sx = ox - L.ax, sy = oy - L.ay, sz = oz - L.az;
-  const float u = f * (sx * hx + sy * hy + sz * hz);
-  const float qx = sy * L.e1z - sz * L.e1y;
-  const float qy = sz * L.e1x - sx * L.e1z;
-  const float qz = sx * L.e1y - sy * L.e1x;
-  const float v = f * (dx * qx + dy * qy + dz * qz);
-  const float t = f * (L.e2x * qx + L.e2y * qy + L.e2z * qz);
-  const bool ok = !parallel && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-                  u + v <= 1.0f && t > kEps && t < tl;
-  return ok ? t : kBigT;
-}
 
 // Replaces _block_kernel_impl (listtrace.py:298-352): one CUDA block per
 // block of 32 sorted rays sharing one candidate list; thread = lane.
@@ -118,11 +72,11 @@ block_tiles_kernel(const int32_t* __restrict__ cand,
   for (int r = 0; r < maxc; ++r) {
     const int c = scand[r];
     if (c == dummy) continue;  // uniform across the block
-    const Lane L = load_lane(tris, c, lane);
+    const srt::Lane L = srt::load_lane(tris, c, lane);
 #pragma unroll
     for (int i = 0; i < kRbShare; ++i) {
-      const float t = mt8(L, sray[i][0], sray[i][1], sray[i][2], sray[i][3],
-                          sray[i][4], sray[i][5], sray[i][6]);
+      const float t = srt::mt8(L, sray[i][0], sray[i][1], sray[i][2],
+                               sray[i][3], sray[i][4], sray[i][5], sray[i][6]);
       if (t < at[i]) {
         at[i] = t;
         ar[i] = r;
@@ -138,7 +92,7 @@ block_tiles_kernel(const int32_t* __restrict__ cand,
 }
 
 // Replaces _list_kernel_impl (listtrace.py:245-295): one CUDA block per
-// ray walking its OWN list; thread = lane.
+// ray walking its OWN list; thread = lane.  The main path's shape.
 __global__ void __launch_bounds__(kLanes)
 list_tiles_kernel(const int32_t* __restrict__ cand,
                   const float* __restrict__ rays,
@@ -155,7 +109,8 @@ list_tiles_kernel(const int32_t* __restrict__ cand,
   for (int r = 0; r < maxc; ++r) {
     const int c = crow[r];
     if (c == dummy) continue;  // uniform across the block
-    const float t = mt8(load_lane(tris, c, lane), ox, oy, oz, dx, dy, dz, tl);
+    const float t = srt::mt8(srt::load_lane(tris, c, lane), ox, oy, oz, dx,
+                             dy, dz, tl);
     if (t < at) {
       at = t;
       ar = r;
@@ -163,6 +118,78 @@ list_tiles_kernel(const int32_t* __restrict__ cand,
   }
   at_out[(size_t)row * kLanes + lane] = at;
   ar_out[(size_t)row * kLanes + lane] = ar;
+}
+
+// The per-ray kernel with kRays rays per CUDA block: the TPU kernel's RB
+// (rays per grid step, swept by scratch/kernel_shape_bench.py:117).  Each
+// round walks the block's kRays rays, each against its OWN tile, so a
+// thread issues kRays independent lane loads per round instead of one;
+// the rays' fields and lists sit in shared memory and their (t, round)
+// pairs in registers.  Outputs are bit-identical to list_tiles_kernel.
+// Bound on an H100: FP32 issue, as list_tiles_kernel; the extra loads in
+// flight do not pay for the larger register state (the probes time it
+// at 1.5-2.4x list_tiles_kernel per ray, PERF.md), so the main path
+// keeps one ray per block.
+template <int kRays>
+__global__ void __launch_bounds__(kLanes)
+list_tiles_rays_kernel(const int32_t* __restrict__ cand,
+                       const float* __restrict__ rays,
+                       const float* __restrict__ tris,
+                       float* __restrict__ at_out,
+                       int32_t* __restrict__ ar_out, int nrays, int maxc,
+                       int dummy) {
+  __shared__ float sray[kRays][8];
+  __shared__ int32_t scand[kRays][kMaxc];
+  const int row0 = blockIdx.x * kRays;
+  const int lane = threadIdx.x;
+  const int nr = min(kRays, nrays - row0);  // the ragged last block
+  for (int i = lane; i < kRays * 8; i += kLanes)
+    sray[i / 8][i % 8] = i / 8 < nr ? rays[(size_t)row0 * 8 + i] : 0.0f;
+  for (int i = lane; i < kRays * maxc; i += kLanes) {
+    const int k = i / maxc, r = i % maxc;
+    scand[k][r] = k < nr ? cand[(size_t)(row0 + k) * maxc + r] : dummy;
+  }
+  __syncthreads();
+
+  float at[kRays];
+  int32_t ar[kRays];
+#pragma unroll
+  for (int i = 0; i < kRays; ++i) {
+    at[i] = sray[i][6];
+    ar[i] = -1;
+  }
+  for (int r = 0; r < maxc; ++r) {
+#pragma unroll
+    for (int i = 0; i < kRays; ++i) {
+      const int c = scand[i][r];
+      if (c == dummy) continue;  // uniform across the block
+      const float t = srt::mt8(srt::load_lane(tris, c, lane), sray[i][0],
+                               sray[i][1], sray[i][2], sray[i][3], sray[i][4],
+                               sray[i][5], sray[i][6]);
+      if (t < at[i]) {
+        at[i] = t;
+        ar[i] = r;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kRays; ++i) {
+    if (i < nr) {
+      const size_t o = ((size_t)row0 + i) * kLanes + lane;
+      at_out[o] = at[i];
+      ar_out[o] = ar[i];
+    }
+  }
+}
+
+template <int kRays>
+void launch_list_rays(const void* cand, const void* rays, const void* tris,
+                      void* at, void* ar, int nrays, int maxc, int dummy,
+                      cudaStream_t stream) {
+  const int grid = (nrays + kRays - 1) / kRays;
+  list_tiles_rays_kernel<kRays><<<grid, kLanes, 0, stream>>>(
+      (const int32_t*)cand, (const float*)rays, (const float*)tris,
+      (float*)at, (int32_t*)ar, nrays, maxc, dummy);
 }
 
 }  // namespace
@@ -190,6 +217,30 @@ int srt_list_tiles(const void* cand, const void* rays, const void* tris,
     list_tiles_kernel<<<nrays, kLanes, 0, (cudaStream_t)stream>>>(
         (const int32_t*)cand, (const float*)rays, (const float*)tris,
         (float*)at, (int32_t*)ar, maxc, dummy);
+  return (int)cudaGetLastError();
+}
+
+// list_tiles with rays_per_block in {8, 16, 32} rays per CUDA block.
+int srt_list_tiles_rays(const void* cand, const void* rays, const void* tris,
+                        void* at, void* ar, int nrays, int maxc, int dummy,
+                        int rays_per_block, void* stream) {
+  if (maxc < 1 || maxc > kMaxc) return (int)cudaErrorInvalidValue;
+  if (nrays > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (rays_per_block) {
+      case 8:
+        launch_list_rays<8>(cand, rays, tris, at, ar, nrays, maxc, dummy, s);
+        break;
+      case 16:
+        launch_list_rays<16>(cand, rays, tris, at, ar, nrays, maxc, dummy, s);
+        break;
+      case 32:
+        launch_list_rays<32>(cand, rays, tris, at, ar, nrays, maxc, dummy, s);
+        break;
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   return (int)cudaGetLastError();
 }
 

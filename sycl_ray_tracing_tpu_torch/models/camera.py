@@ -9,6 +9,7 @@ import dataclasses
 import torch
 
 from sycl_ray_tracing_tpu_torch.ops import transform as T
+from sycl_ray_tracing_tpu_torch.utils.device import resolve_device
 
 
 def _default_coordinate_system() -> torch.Tensor:
@@ -23,8 +24,9 @@ class Camera:
 
     @staticmethod
     def create(fov_degrees: float = 45.0, transform=None,
-               device="cpu") -> "Camera":
+               device="cuda") -> "Camera":
         """fov is the FULL field of view in degrees (camera.h:22-31)."""
+        device = resolve_device(device)
         if transform is None:
             transform = T.identity()
         view = T.compose(transform, _default_coordinate_system())
@@ -54,32 +56,32 @@ class Camera:
 
 
 # The five reference presets (camera.cpp:4-8)
-def cornell_box_camera(device="cpu") -> Camera:
+def cornell_box_camera(device="cuda") -> Camera:
     return Camera.create(45.0, T.translation(0.0, 1.0, 3.5), device)
 
 
-def ganesha_camera(device="cpu") -> Camera:
+def ganesha_camera(device="cuda") -> Camera:
     return Camera.create(
         45.0, T.compose(T.rotation_x(-15.0), T.translation(-0.0205, 0.67, 1.0)),
         device,
     )
 
 
-def ite_orb_camera(device="cpu") -> Camera:
+def ite_orb_camera(device="cuda") -> Camera:
     return Camera.create(
         45.0, T.compose(T.rotation_x(-45.0), T.translation(0.0, 0.15, 1.5)),
         device,
     )
 
 
-def pbrt_dragon_camera(device="cpu") -> Camera:
+def pbrt_dragon_camera(device="cuda") -> Camera:
     return Camera.create(
         45.0, T.compose(T.rotation_x(-45.0), T.translation(0.0, -1.0, 10.5)),
         device,
     )
 
 
-def mis_camera(device="cpu") -> Camera:
+def mis_camera(device="cuda") -> Camera:
     return Camera.create(
         45.0, T.compose(T.rotation_x(-10.0), T.translation(0.0, -3.0, 10.5)),
         device,

@@ -1,8 +1,8 @@
 """Scene representation: structure-of-arrays tensors (counterpart of
 sycl_ray_tracing_tpu/models/scene.py).
 
-Every constructor takes an explicit ``device``; there is no global
-default.  ``scene_from_numpy`` carries a JAX ``Scene``'s leaves across as
+Every constructor takes a ``device``: the card unless the caller asks
+for the CPU (utils/device.py).  ``scene_from_numpy`` carries a JAX ``Scene``'s leaves across as
 numpy arrays, so both packages can render the very same scene.
 """
 
@@ -26,6 +26,7 @@ from sycl_ray_tracing_tpu_torch.ops.envmap import (
     sampler_from_numpy,
 )
 from sycl_ray_tracing_tpu_torch.ops.sampling import triangle_area
+from sycl_ray_tracing_tpu_torch.utils.device import resolve_device
 
 # tri | material << 20 packing of the cluster-slot shading table
 SLOT_TRI_BITS = 20
@@ -55,7 +56,9 @@ class Materials:
 
 
 def make_materials(emission, diffuse, metalness, roughness,
-                   device="cpu") -> Materials:
+                   device="cuda") -> Materials:
+    device = resolve_device(device)
+
     def f32(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
@@ -121,9 +124,10 @@ def _slot_table(scene: Scene) -> Optional[torch.Tensor]:
 
 def make_scene(triangles, material_indices, materials: Materials,
                emissive_indices=None, env_map_image=None,
-               device="cpu") -> Scene:
+               device="cuda") -> Scene:
     """Assemble a Scene from host arrays, deriving emissive indices from
     material emission if not given (reference utils.cpp:58-69)."""
+    device = resolve_device(device)
     tris = np.asarray(triangles, np.float32)
     mi = np.asarray(material_indices, np.int32)
     if emissive_indices is None:

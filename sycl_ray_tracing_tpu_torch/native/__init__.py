@@ -30,13 +30,14 @@ _lib = None
 
 
 def build_shared_library(sources, out_prefix: str, compiler: list,
-                         flags: list) -> Path:
+                         flags: list, headers=()) -> Path:
     """Compile ``sources`` into BUILD_DIR/<prefix>_<hash>.so, once per
-    content hash of sources and flags.  The library is written under a
-    temporary name and renamed into place, so concurrent builders (test
-    workers) never load a half-written file.  Raises on failure."""
+    content hash of sources, the ``headers`` they include, and flags.  The
+    library is written under a temporary name and renamed into place, so
+    concurrent builders (test workers) never load a half-written file.
+    Raises on failure."""
     h = hashlib.sha256()
-    for src in sources:
+    for src in list(sources) + list(headers):
         h.update(Path(src).read_bytes())
     h.update(" ".join(compiler + flags).encode())
     out = BUILD_DIR / f"{out_prefix}_{h.hexdigest()[:16]}.so"

@@ -27,6 +27,7 @@ import torch
 
 from sycl_ray_tracing_tpu_torch.ops.intersect import BIG_T
 from sycl_ray_tracing_tpu_torch.ops.safe_math import EPS
+from sycl_ray_tracing_tpu_torch.utils.device import resolve_device
 
 T_CLUSTER = 128      # triangles per cluster
 S_CLUSTER = 64       # clusters per supercluster
@@ -187,8 +188,9 @@ def build_cluster_arrays(triangles: np.ndarray, order="sah") -> dict:
 
 
 def build_clusters(triangles: np.ndarray, order="sah",
-                   device="cpu") -> ClusterScene:
+                   device="cuda") -> ClusterScene:
     """ClusterScene on ``device`` (see build_cluster_arrays)."""
+    device = resolve_device(device)
     return clusters_from_numpy(build_cluster_arrays(triangles, order), device)
 
 

@@ -14,7 +14,8 @@ Kernels (csrc/listtrace.cu, CUDA C++ for sm_90a):
     RB_SHARE=32 sorted rays; it runs the primaries and every fused bounce
     query.
   * ``list_tiles`` replaces ``_list_kernel_impl``: each ray walks its own
-    list; it runs the escalation pass.
+    list; it runs the escalation pass (one ray per CUDA block; the probes
+    also run it at 8, 16 and 32 rays per block, the TPU kernel's RB).
 Each wrapper sends CPU tensors to its plain torch version, beside it in
 this module, and launches the CUDA kernel for CUDA tensors (or raises).
 ``impl="plain"`` forces the plain version, for comparisons only.
@@ -54,7 +55,10 @@ HIER_MAXS = 16     # supercluster slots per block in the hierarchical build
 MAX_CLUSTERS = 8192  # 13-bit candidate ids / 20-bit packed winners
 LIST_SHARE_DEFAULT = True
 
-CSRC = Path(__file__).resolve().parents[2] / "csrc" / "listtrace.cu"
+CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
+CSRC = CSRC_DIR / "listtrace.cu"
+HEADERS = [CSRC_DIR / "mt8.cuh"]
+LIST_RAYS_PER_BLOCK = (1, 8, 16, 32)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -86,12 +90,13 @@ def load_cuda_library() -> ctypes.CDLL:
         from sycl_ray_tracing_tpu_torch.native import build_shared_library
 
         path = build_shared_library([CSRC], "liblisttrace", [nvcc_path()],
-                                    NVCC_FLAGS)
+                                    NVCC_FLAGS, HEADERS)
         lib = ctypes.CDLL(str(path))
-        for name in ("srt_block_tiles", "srt_list_tiles"):
+        for name, nint in (("srt_block_tiles", 3), ("srt_list_tiles", 3),
+                           ("srt_list_tiles_rays", 4)):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * nint + [
                 ctypes.c_void_p]
         _cuda_lib = lib
     return _cuda_lib
@@ -188,7 +193,8 @@ def _check_tile_args(cand, rays, tris, rows: int):
         raise ValueError("cand, rays and tris must share a device")
 
 
-def _launch(name: str, cand, rays, tris, rows: int, grid: int):
+def _launch(name: str, cand, rays, tris, rows: int, grid: int, *extra,
+            entry=None):
     if not cand.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors")
     lib = load_cuda_library()
@@ -198,9 +204,10 @@ def _launch(name: str, cand, rays, tris, rows: int, grid: int):
     if grid == 0:
         return at, ar
     stream = torch.cuda.current_stream(cand.device).cuda_stream
-    rc = getattr(lib, f"srt_{name}")(
+    rc = getattr(lib, entry or f"srt_{name}")(
         cand.data_ptr(), rays.data_ptr(), tris.data_ptr(), at.data_ptr(),
-        ar.data_ptr(), grid, cand.shape[1], tris.shape[0] - 1, stream,
+        ar.data_ptr(), grid, cand.shape[1], tris.shape[0] - 1, *extra,
+        stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
@@ -221,16 +228,26 @@ def block_tiles(cand, rays, tris, impl=None):
                    cand.shape[0])
 
 
-def list_tiles(cand, rays, tris, impl=None):
+def list_tiles(cand, rays, tris, impl=None, rays_per_block: int = 1):
     """Per-ray list kernel.  cand i32 [B, maxc], rays f32 [B, 8],
-    tris f32 [K2+1, 9, 128] -> (at f32, ar i32) [B, 128]."""
+    tris f32 [K2+1, 9, 128] -> (at f32, ar i32) [B, 128].
+    ``rays_per_block`` (1, 8, 16 or 32) rays share a CUDA block; the main
+    path uses 1.  The outputs do not depend on it, so the plain version
+    ignores it."""
     _check_tile_args(cand, rays, tris, cand.shape[0])
+    if rays_per_block not in LIST_RAYS_PER_BLOCK:
+        raise ValueError(f"rays_per_block must be one of "
+                         f"{LIST_RAYS_PER_BLOCK}, got {rays_per_block}")
     if impl == "plain" or (impl is None and cand.device.type == "cpu"):
         return list_tiles_plain(cand, rays, tris)
     if impl not in (None, "cuda"):
         raise ValueError(f"bad impl {impl!r}")
+    if rays_per_block == 1:
+        return _launch("list_tiles", cand, rays, tris, rays.shape[0],
+                       cand.shape[0])
     return _launch("list_tiles", cand, rays, tris, rays.shape[0],
-                   cand.shape[0])
+                   cand.shape[0], rays_per_block,
+                   entry="srt_list_tiles_rays")
 
 
 def _scene_bounds(scene: ClusterScene):

@@ -1,0 +1,144 @@
+"""The least time an H100 could take for each hand-written kernel's work:
+bound = max(operations / 67 TFLOP/s FP32, bytes / 3.35 TB/s), the SXM
+part's published peaks at its full 700 W.
+
+Operations are counted from this call's inputs, for the work the data
+needs: each FP32 multiply, add or subtract, compare and reciprocal counts
+one, and only live (non-dummy) rounds count.  67 TFLOP/s counts an FMA as
+two operations; the kernels are built with -fmad=false, so each of these
+operations takes one issue slot and this mix can reach at most about half
+of that peak.  Bytes: each input byte the output depends on read once
+(the tiles its lists name, once each; the 7 ray columns the list kernels
+use), each output byte written once.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sycl_ray_tracing_tpu_torch.ops.kernels.probes import MOSAIC_FEATURES
+
+FP32_OPS_PER_S = 67e12
+BYTES_PER_S = 3.35e12
+TILE_BYTES = 9 * 128 * 4
+LANES = 128
+RAY_COLS_USED = 7  # o, d, t_lim: the list kernels ignore column 7
+# _mt8 per (ray, lane, live round): h 9, a 5, the parallel test 1, the
+# reciprocal 1, s 3, u 6, q 9, v 6, t 6, the six hit tests and u + v 7;
+# plus the update compare
+MT8_OPS = 54
+EDGE_OPS = 6      # the two edges, once per loaded tile lane
+# the probes' synthetic MT per (ray, lane, round): edges 6, h 9, a 5,
+# the parallel test 1, the reciprocal 1, u / v / t 18, hit tests and
+# u + v 5 (4 without the t > EPS test)
+SYNTH_MT_OPS = 45
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(bound in ms, "operations" or "bytes")."""
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_bytes = nbytes / BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _rays(rays) -> int:
+    return rays.shape[0] * RAY_COLS_USED * rays.element_size()
+
+
+def _tiles(cand, dummy: int) -> int:
+    """Bytes of the distinct real tiles the lists name."""
+    ids = torch.unique(cand)
+    return int((ids != dummy).sum()) * TILE_BYTES
+
+
+def block_tiles_work(cand, rays, tris) -> tuple[float, float]:
+    """(operations, bytes) of block_tiles on these lists."""
+    dummy = tris.shape[0] - 1
+    live = int((cand != dummy).sum())                 # block-rounds
+    rb = rays.shape[0] // cand.shape[0]
+    ops = live * LANES * (EDGE_OPS + rb * MT8_OPS)
+    out = rays.shape[0] * LANES * 8                   # at f32 + ar i32
+    return ops, _nbytes(cand) + _rays(rays) + _tiles(cand, dummy) + out
+
+
+def list_tiles_work(cand, rays, tris) -> tuple[float, float]:
+    """(operations, bytes) of list_tiles (any rays_per_block)."""
+    dummy = tris.shape[0] - 1
+    live = int((cand != dummy).sum())                 # ray-rounds
+    ops = live * LANES * (EDGE_OPS + MT8_OPS)
+    out = rays.shape[0] * LANES * 8
+    return ops, _nbytes(cand) + _rays(rays) + _tiles(cand, dummy) + out
+
+
+def list_tiles_min_work(cand, rays, tris) -> tuple[float, float]:
+    ops, nbytes = list_tiles_work(cand, rays, tris)
+    n = rays.shape[0]
+    return ops + n * (LANES - 1), nbytes - n * LANES * 8 + n * 4
+
+
+def round_probe_work(cand, tris, variant: str) -> tuple[float, float]:
+    """The copy variants' output is the sum of plane 0, lane 0 of the
+    tiles (dyncopy: those cand names; statcopy: tile 7, cand unread); the
+    MT variants work on whole tiles (mtonly on none)."""
+    rows, rounds = cand.shape
+    out = rows * 4
+    if variant in ("dyncopy", "statcopy"):
+        ops = rows * rounds                           # one add a round
+    else:
+        mt = SYNTH_MT_OPS - (variant == "dynmt_noeps")
+        ops = rows * rounds * (LANES * mt + LANES)    # + the lane min
+    n_tiles = int(torch.unique(cand).numel())
+    if variant == "dyncopy":
+        nbytes = _nbytes(cand) + n_tiles * 4
+    elif variant == "statcopy":
+        nbytes = 4
+    elif variant == "mtonly":
+        nbytes = 0                                    # reads nothing
+    else:
+        nbytes = _nbytes(cand) + n_tiles * TILE_BYTES
+    return ops, nbytes + out
+
+
+def smoke_gather_work(cid, table, rays) -> tuple[float, float]:
+    """The output reads column 0 of rays and the table rows cid names."""
+    rows = rays.shape[0]
+    ops = rows * (2 * LANES + 1)
+    rows_read = int(torch.unique(cid).numel()) * LANES * 4
+    return ops, _nbytes(cid) + rows * 4 + rows_read + rows * 4
+
+
+def smoke_rank_select_work(mask, table) -> tuple[float, float]:
+    n = int((mask > 0.5).any(dim=0).sum())
+    ops = mask.numel() + LANES + n * LANES           # tests, scan, sums
+    return ops, _nbytes(mask) + n * LANES * 4 + LANES * 4
+
+
+def mosaic_probe_rounds(ns, x, feature: str) -> int:
+    """The rounds the feature's loop runs on these inputs: ns[0] with the
+    while loop, ending after the first round whose column max is <= -1;
+    else 4."""
+    f = MOSAIC_FEATURES[feature]
+    if not f & 1:
+        return 4
+    n = int(ns[0])
+    for r in range(n):
+        col = x[:, r] if f & 2 else x[:, 0] + float(r)
+        if float(col.max()) <= -1.0:
+            return r + 1
+    return n
+
+
+def mosaic_probe_work(ns, cand, x, feature: str) -> tuple[float, float]:
+    """Per round and element: the adds into o (2, or 1 with extract), the
+    column's add (without ds), the when test and multiply (with when).
+    Bytes: ns, x, the cand columns of the rounds run (with when), o."""
+    f = MOSAIC_FEATURES[feature]
+    rounds = mosaic_probe_rounds(ns, x, feature)
+    per = (1 if f & 4 else 2) + (0 if f & 2 else 1) + (2 if f & 8 else 0)
+    cand_read = cand.shape[0] * rounds * 4 if f & 8 else 0
+    return (rounds * x.numel() * per,
+            _nbytes(ns, x) + cand_read + x.numel() * 4)

@@ -1,0 +1,89 @@
+"""Kernel-shape sweep on the card (counterpart of
+scratch/kernel_shape_bench.py): the per-ray list kernel at 1 / 8 / 16 /
+32 rays per CUDA block (the TPU kernel's RB) x maxc 16 / 32, the per-ray
+kernel with the lane min inside (one t per ray out), and the block-shared
+kernel at maxc 48 / 96 on grouped lists; all on one all-live surface
+wavefront of 98,304 sorted rays over the 200k-triangle dragon stand-in.
+Reports ms and ns per ray.
+
+    python -m sycl_ray_tracing_tpu_torch.probes kernel_shape
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sycl_ray_tracing_tpu_torch.ops.cluster import (
+    candidate_clusters,
+    candidate_clusters_grouped,
+)
+from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as lt
+from sycl_ray_tracing_tpu_torch.ops.kernels import probes as pk
+from sycl_ray_tracing_tpu_torch.probes import bounds
+from sycl_ray_tracing_tpu_torch.probes.common import (
+    bound_note,
+    cuda_ms,
+    dummy_lists,
+    live_rounds_mean,
+    pack_rays,
+    plain_line,
+    surface_wavefront,
+)
+
+B = 3 * 32768
+LIST_MAXC = 48
+SHARE_MAXC = 96
+
+
+def workload(scene) -> dict:
+    """The sorted wavefront, its per-ray lists (maxc 48) and its block
+    lists (maxc 96, 32 rays a block), as kernel_shape_bench.py:46-75."""
+    cs = scene.clusters
+    o, d, tl = surface_wavefront(scene.triangles.cpu().numpy(), B,
+                                 scene.device)
+    perm = torch.argsort(lt._ray_sort_key(cs, o, d), stable=True)
+    o, d = o[perm], d[perm]
+    cand, _ctn, _of = candidate_clusters(cs, o, d, tl, LIST_MAXC)
+    candg, _ctng, _of, _cov = candidate_clusters_grouped(
+        cs, o, d, tl, SHARE_MAXC, lt.RB_SHARE)
+    return dict(k2=cs.num_clusters, rays=pack_rays(o, d, tl), cand=cand,
+                candg=candg, tris=lt._tiles_with_dummy(cs))
+
+
+def per_ray_lists(work: dict, maxc: int):
+    return dummy_lists(work["cand"][:, :maxc], work["k2"])
+
+
+def run(scene, reps: int = 5, work: dict | None = None):
+    work = work or workload(scene)
+    rays, tris, k2 = work["rays"], work["tris"], work["k2"]
+    for maxc in (16, 32):
+        cnd = per_ray_lists(work, maxc)
+        print(f"per-ray maxc={maxc:2d}: {live_rounds_mean(cnd, k2):.2f} live "
+              f"rounds per ray", flush=True)
+        for rb in lt.LIST_RAYS_PER_BLOCK:
+            ms = cuda_ms(lambda: lt.list_tiles(cnd, rays, tris,
+                                               rays_per_block=rb), reps)
+            print(f"per-ray rb={rb:2d} maxc={maxc:2d}: {ms:8.4f} ms "
+                  f"({ms * 1e6 / B:7.2f} ns/ray), "
+                  f"{bound_note(bounds.list_tiles_work(cnd, rays, tris))}",
+                  flush=True)
+    cnd = per_ray_lists(work, 32)
+    plain_line("per-ray maxc=32", lambda: lt.list_tiles_plain(cnd, rays,
+                                                              tris))
+    ms = cuda_ms(lambda: pk.list_tiles_min(cnd, rays, tris), reps)
+    print(f"per-ray rb= 1 mc=32 inkred: {ms:8.4f} ms "
+          f"({ms * 1e6 / B:7.2f} ns/ray), "
+          f"{bound_note(bounds.list_tiles_min_work(cnd, rays, tris))}",
+          flush=True)
+    for maxc in (48, 96):
+        cnd = dummy_lists(work["candg"][:, :maxc], k2)
+        ms = cuda_ms(lambda: lt.block_tiles(cnd, rays, tris), reps)
+        print(f"share   rb=32 maxc={maxc:2d}: {ms:8.4f} ms "
+              f"({ms * 1e6 / B:7.2f} ns/ray, "
+              f"{live_rounds_mean(cnd, k2):.2f} live rounds per block), "
+              f"{bound_note(bounds.block_tiles_work(cnd, rays, tris))}",
+              flush=True)
+    plain_line("share rb=32 maxc=96", lambda: lt.block_tiles_plain(
+        cnd, rays, tris))
+

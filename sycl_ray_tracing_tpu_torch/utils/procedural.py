@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from sycl_ray_tracing_tpu_torch.utils.device import resolve_device
+
 
 def dragon_standin(n_tris: int = 200_000, seed: int = 0) -> np.ndarray:
     """Generate ~n_tris triangles [N,3,3] of a displaced torus-knot tube.
@@ -105,7 +107,7 @@ def procedural_sky(h: int = 512, w: int = 1024, sun_intensity: float = 500.0,
 
 def dragon_scene(n_tris: int = 200_000, with_sky: bool = True,
                  sky_res: tuple = (512, 1024), build_accel: bool = True,
-                 device="cpu"):
+                 device="cuda"):
     """Assemble the flagship benchmark scene: dragon stand-in on a ground
     plane with a rough-metal material + emissive panel + HDR sky, with
     its tensors on ``device``."""
@@ -114,6 +116,7 @@ def dragon_scene(n_tris: int = 200_000, with_sky: bool = True,
         make_scene,
     )
 
+    device = resolve_device(device)
     dragon = dragon_standin(n_tris - 12)
     # ground plane + emissive panel above
     g = 8.0

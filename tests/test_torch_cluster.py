@@ -82,7 +82,7 @@ def test_scene_tables_and_scene_from_numpy():
     js = jax_dragon(n_tris=2_000, with_sky=True, sky_res=(16, 32))
     ja = jax_scene_arrays(js)
     ps = dragon_scene(n_tris=2_000, with_sky=True, sky_res=(16, 32),
-                      build_accel=False)
+                      build_accel=False, device="cpu")
     # the JAX scene's own cluster order (it may be its Morton fallback)
     order = np.asarray(js.clusters.cl_tri_idx).reshape(-1)
     order = order[order >= 0]
@@ -109,9 +109,9 @@ def test_scene_tables_and_scene_from_numpy():
 def test_make_scene_emitters():
     mats = make_materials(emission=[(1, 0, 1), (0, 0, 0), (2, 2, 2)],
                           diffuse=[(0, 0, 0)] * 3, metalness=[0, 0, 0],
-                          roughness=[1, 1, 1])
+                          roughness=[1, 1, 1], device="cpu")
     tris = np.zeros((4, 3, 3), np.float32)
-    scene = make_scene(tris, [0, 1, 2, 2], mats)
+    scene = make_scene(tris, [0, 1, 2, 2], mats, device="cpu")
     # row 0 (debug magenta) never counts as a light
     assert scene.emissive_indices.tolist() == [2, 3]
 
@@ -119,7 +119,7 @@ def test_make_scene_emitters():
 def _both_clusters(tris):
     perm = PC.sah_order(tris)
     return (JC.build_clusters(tris, order=perm),
-            PC.build_clusters(tris, order=perm))
+            PC.build_clusters(tris, order=perm, device="cpu"))
 
 
 def _slab_inputs(rng, n, t_max):

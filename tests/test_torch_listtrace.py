@@ -33,7 +33,7 @@ def mesh():
     tris = dragon_standin(4_000)
     perm = PC.sah_order(tris)
     return tris, JC.build_clusters(tris, order=perm), PC.build_clusters(
-        tris, order=perm)
+        tris, order=perm, device="cpu")
 
 
 def _compare_run(jout, pout):

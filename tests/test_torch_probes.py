@@ -1,0 +1,478 @@
+"""The probe kernels' plain versions against the TPU kernels they replace
+(Pallas in interpret mode on CPU), the device defaults of the port's
+entry points, and the probe workloads at small sizes.
+
+The scratch probe scripts run their benchmarks at import, so their kernel
+factories are taken from the source with ``ast`` and built here with
+``interpret=True`` at tiny sizes.  Tolerances: exact for the copy
+variants, the smoke kernels and the zero outputs; t within 1e-5 for
+anything through Möller–Trumbore (XLA:CPU may contract its products into
+FMAs, torch does not), winners (rounds) exact."""
+
+import ast
+import functools
+import inspect
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from sycl_ray_tracing_tpu.ops.pallas import listtrace as JL
+from sycl_ray_tracing_tpu_torch.models import camera as pcam
+from sycl_ray_tracing_tpu_torch.models import scene as pscene
+from sycl_ray_tracing_tpu_torch.ops import cluster as PC
+from sycl_ray_tracing_tpu_torch.ops.intersect import BIG_T
+from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as PL
+from sycl_ray_tracing_tpu_torch.ops.kernels import probes as PK
+from sycl_ray_tracing_tpu_torch.probes import bounds, chunk, feature_smoke
+from sycl_ray_tracing_tpu_torch.probes import micro_round
+from sycl_ray_tracing_tpu_torch.probes.common import (
+    dummy_lists,
+    pack_rays,
+    surface_wavefront,
+)
+from sycl_ray_tracing_tpu_torch.utils import procedural
+
+SCRATCH = Path(__file__).resolve().parents[1] / "scratch"
+T_TOL = 1e-5
+T = 128
+
+
+def scratch_defs(script: str, names, **consts) -> dict:
+    """The top-level functions ``names`` of a scratch script, executed in
+    a namespace holding jax, numpy and Pallas plus ``consts`` (the
+    script's module constants, at test sizes)."""
+    path = SCRATCH / script
+    tree = ast.parse(path.read_text())
+    body = [n for n in tree.body
+            if isinstance(n, ast.FunctionDef) and n.name in names]
+    assert {n.name for n in body} == set(names)
+    ns = dict(jax=jax, jnp=jnp, np=np, pl=pl, pltpu=pltpu, **consts)
+    exec(compile(ast.Module(body=body, type_ignores=[]), str(path), "exec"),
+         ns)
+    return ns
+
+
+# ---- round_probe: micro_copy.py / micro_super.py ----------------------
+
+def _round_call(kernel, rows_per_step, steps, rounds, rb=8):
+    return pl.pallas_call(
+        kernel,
+        grid=(steps,),
+        in_specs=[
+            pl.BlockSpec((rows_per_step, rounds), lambda b: (b, 0),
+                         memory_space=pltpu.SMEM),
+            pl.BlockSpec(memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((rows_per_step, 1), lambda b: (b, 0),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((steps * rows_per_step, 1),
+                                       jnp.float32),
+        scratch_shapes=[pltpu.VMEM((9, rb, T), jnp.float32)],
+        interpret=True,
+    )
+
+
+@pytest.mark.parametrize("variant", ["dyncopy", "statcopy", "mtonly",
+                                     "dynmt"])
+def test_round_probe_matches_micro_copy(variant):
+    k2, rb, rounds, nb = 16, 8, 4, 4
+    ns = scratch_defs("micro_copy.py", ["mk"], K2=k2, T=T, RB=rb, R=rounds)
+    w = micro_round.workload("cpu", nb=nb, rounds=rounds, k2=k2)
+    cand, tris = w["cand"].numpy(), w["tris"].numpy()
+    want = np.asarray(_round_call(ns["mk"](variant), rb, nb, rounds)(
+        cand, tris))
+    got = PK.round_probe(w["cand"], w["tris"], variant).numpy()
+    np.testing.assert_array_equal(got, want)
+    if variant in ("mtonly", "dynmt"):
+        assert (got == 0).all()        # min(0, t > EPS or 1e30), as on TPU
+    else:
+        assert (got != 0).all()
+
+
+@pytest.mark.parametrize("subblocks", [1, 2])
+def test_round_probe_subblocks_match_micro_super(subblocks):
+    """micro_super.py's kernel (dynmt without the t > EPS test) at 1 and
+    2 sub-blocks per grid step; sub-blocks do not change the output."""
+    k2, rb, rounds, tot = 16, 8, 2, 4
+    ns = scratch_defs("micro_super.py", ["mk"], K2=k2, T=T, RB=rb, R=rounds)
+    w = micro_round.workload("cpu", nb=tot, rounds=rounds, k2=k2)
+    want = np.asarray(_round_call(ns["mk"](subblocks), subblocks * rb,
+                                  tot // subblocks, rounds)(
+        w["cand"].numpy(), w["tris"].numpy()))
+    got = PK.round_probe(w["cand"], w["tris"], "dynmt_noeps",
+                         subblocks=subblocks).numpy()
+    np.testing.assert_allclose(got, want, rtol=T_TOL, atol=T_TOL)
+    assert (got <= 0).all()
+
+
+# ---- smoke kernels ----------------------------------------------------
+
+def test_smoke_gather_matches_pallas_smoke():
+    ns = scratch_defs("pallas_smoke.py", ["kernel"], RT=64, T=T)
+    w = feature_smoke.gather_inputs("cpu")
+    nb = w["cid"].shape[0]
+    grid_spec = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=1,
+        grid=(nb,),
+        in_specs=[
+            pl.BlockSpec((1, 1, T), lambda b, cid: (cid[b], 0, 0),
+                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((64, 8), lambda b, cid: (b, 0),
+                         memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((64, 1), lambda b, cid: (b, 0),
+                               memory_space=pltpu.VMEM),
+    )
+    f = pl.pallas_call(
+        ns["kernel"],
+        out_shape=jax.ShapeDtypeStruct((nb * 64, 1), jnp.float32),
+        grid_spec=grid_spec, interpret=True)
+    want = np.asarray(f(*(w[k].numpy() for k in ("cid", "table", "rays"))))
+    got = PK.smoke_gather(w["cid"], w["table"], w["rays"])
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, feature_smoke.gather_want(w))
+
+
+def test_smoke_rank_select_matches_pallas_smoke2():
+    ns = scratch_defs("pallas_smoke2.py", ["kernel"])
+    w = feature_smoke.rank_select_inputs("cpu")
+    f = pl.pallas_call(
+        ns["kernel"],
+        out_shape=jax.ShapeDtypeStruct((1, T), jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        interpret=True)
+    want = np.asarray(f(w["mask"].numpy(), w["table"].numpy()))
+    got = PK.smoke_rank_select(w["mask"], w["table"])
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, feature_smoke.rank_select_want(w))
+    # a denser random mask and table, ranks past one warp
+    rng = np.random.default_rng(4)
+    mask = (rng.random((8, T)) < 0.2).astype(np.float32)
+    table = rng.normal(size=(T, 1, T)).astype(np.float32)
+    want = np.asarray(f(mask, table))
+    got = PK.smoke_rank_select(torch.tensor(mask), torch.tensor(table))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("feature", list(PK.MOSAIC_FEATURES))
+def test_mosaic_probe_matches_probe_mosaic(feature):
+    ns = scratch_defs("probe_mosaic.py", ["kernel"], FEAT=feature)
+    w = feature_smoke.mosaic_inputs("cpu")
+    f = pl.pallas_call(
+        ns["kernel"],
+        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 2
+        + [pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((8, T), jnp.float32),
+        scratch_shapes=[pltpu.VMEM((8, T), jnp.float32)],
+        interpret=True)
+    # the script's inputs, then a random predicate and a loop that stops
+    # early (a column max <= -1 ends the while loop)
+    rng = np.random.default_rng(len(feature))
+    cand2 = rng.integers(-1, 2, (8, T)).astype(np.int32)
+    x2 = rng.normal(size=(8, T)).astype(np.float32)
+    x2[:, 2] = -5.0
+    for ns_, cand, x in ((w["ns"].numpy(), w["cand"].numpy(),
+                          w["x"].numpy()),
+                         (np.array([7], np.int32), cand2, x2)):
+        want = np.asarray(f(ns_, cand, x))
+        got = PK.mosaic_probe(torch.tensor(ns_), torch.tensor(cand),
+                              torch.tensor(x), feature)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---- list kernels: kernel_shape_bench.py / phase_bench4.py / chunk ----
+
+@pytest.fixture(scope="module")
+def wavefront():
+    """A sorted surface wavefront on a small dragon scene, its per-ray
+    lists (maxc 12) and block lists (maxc 16, 32 rays a block)."""
+    scene = procedural.dragon_scene(2_000, with_sky=False, device="cpu")
+    cs = scene.clusters
+    o, d, tl = surface_wavefront(scene.triangles.numpy(), 128, "cpu")
+    tl[::5] = 1.0                                 # some short limits
+    perm = torch.argsort(PL._ray_sort_key(cs, o, d), stable=True)
+    o, d, tl = o[perm], d[perm], tl[perm]
+    cand, ctn, _ = PC.candidate_clusters(cs, o, d, tl, 12)
+    candg, ctng, _, _ = PC.candidate_clusters_grouped(cs, o, d, tl, 16, 32)
+    k2 = cs.num_clusters
+    return dict(k2=k2, rays=pack_rays(o, d, tl), cand=cand, ctn=ctn,
+                candg=candg, ctng=ctng, tris=PL._tiles_with_dummy(cs))
+
+
+def _per_ray_pallas(w, rb, inkred):
+    """_list_kernel_impl over rb-ray grid steps, as kernel_shape_bench.py:
+    77-145 builds it (with the lane min inside when ``inkred``)."""
+    cand = dummy_lists(w["cand"], w["k2"]).numpy()
+    ctn = w["ctn"].numpy()
+    rays, tris = w["rays"].numpy(), w["tris"].numpy()
+    b, maxc = cand.shape
+    impl = functools.partial(JL._list_kernel_impl, maxc=maxc, interpret=True)
+    in_specs = [
+        pl.BlockSpec((rb, maxc), lambda i: (i, 0), memory_space=pltpu.SMEM),
+        pl.BlockSpec((rb, maxc), lambda i: (i, 0), memory_space=pltpu.VMEM),
+        pl.BlockSpec((rb, 8), lambda i: (i, 0), memory_space=pltpu.VMEM),
+        pl.BlockSpec(memory_space=pltpu.VMEM),
+    ]
+    if inkred:
+        def kern(cand_s, ctn_ref, rays_ref, tris_ref, t_out, at_ref, ar_ref,
+                 stk_ref):
+            impl(cand_s, ctn_ref, rays_ref, tris_ref, at_ref, ar_ref, stk_ref)
+            t_out[:] = jnp.min(at_ref[:], axis=1, keepdims=True)
+
+        return np.asarray(pl.pallas_call(
+            kern, grid=(b // rb,), in_specs=in_specs,
+            out_specs=pl.BlockSpec((rb, 1), lambda i: (i, 0),
+                                   memory_space=pltpu.VMEM),
+            out_shape=jax.ShapeDtypeStruct((b, 1), jnp.float32),
+            scratch_shapes=[pltpu.VMEM((rb, T), jnp.float32),
+                            pltpu.VMEM((rb, T), jnp.int32),
+                            pltpu.VMEM((9, rb, T), jnp.float32)],
+            interpret=True,
+        )(cand, ctn, rays, tris))[:, 0]
+    spec = pl.BlockSpec((rb, T), lambda i: (i, 0), memory_space=pltpu.VMEM)
+    at, ar = pl.pallas_call(
+        impl, grid=(b // rb,), in_specs=in_specs, out_specs=(spec, spec),
+        out_shape=(jax.ShapeDtypeStruct((b, T), jnp.float32),
+                   jax.ShapeDtypeStruct((b, T), jnp.int32)),
+        scratch_shapes=[pltpu.VMEM((9, rb, T), jnp.float32)],
+        interpret=True,
+    )(cand, ctn, rays, tris)
+    return np.asarray(at), np.asarray(ar)
+
+
+@pytest.mark.parametrize("rb", [8, 16, 32])
+def test_list_tiles_rays_per_block_matches_pallas(wavefront, monkeypatch,
+                                                  rb):
+    """The per-ray kernel at the TPU's RB rays per grid step against the
+    port's per-ray kernel at as many rays per CUDA block."""
+    monkeypatch.setattr(JL, "RB", rb)
+    want_at, want_ar = _per_ray_pallas(wavefront, rb, inkred=False)
+    w = wavefront
+    at, ar = PL.list_tiles(dummy_lists(w["cand"], w["k2"]), w["rays"],
+                           w["tris"], rays_per_block=rb)
+    np.testing.assert_array_equal(ar.numpy(), want_ar)
+    np.testing.assert_allclose(at.numpy(), want_at, rtol=T_TOL, atol=T_TOL)
+    assert (ar >= 0).any()
+
+
+def test_list_tiles_min_matches_pallas(wavefront, monkeypatch):
+    monkeypatch.setattr(JL, "RB", 8)
+    want = _per_ray_pallas(wavefront, 8, inkred=True)
+    w = wavefront
+    got = PK.list_tiles_min(dummy_lists(w["cand"], w["k2"]), w["rays"],
+                            w["tris"])
+    np.testing.assert_allclose(got.numpy(), want, rtol=T_TOL, atol=T_TOL)
+    assert (got < BIG_T).any() and (got == BIG_T).any()
+
+
+def _block_pallas(cand_rows, ctn_rows, rays, tris, k2):
+    """_block_kernel_impl over every block, with the count column and the
+    8-row granules, as chunk_bench_r4.py:55-111 builds it."""
+    g, maxc = cand_rows.shape
+    cnt = (cand_rows >= 0).sum(axis=1).astype(np.int32)
+    cand_k = np.concatenate(
+        [np.where(cand_rows >= 0, cand_rows, k2), cnt[:, None]],
+        axis=1).astype(np.int32)
+    gpad = -g % 8
+    if gpad:
+        cand_k = np.concatenate(
+            [cand_k, np.concatenate([np.full((gpad, maxc), k2, np.int32),
+                                     np.zeros((gpad, 1), np.int32)], 1)])
+        ctn_rows = np.concatenate(
+            [ctn_rows, np.full((gpad, maxc), BIG_T, np.float32)])
+    kernel = functools.partial(JL._block_kernel_impl, maxc=maxc, rb=32,
+                               interpret=True)
+    spec = pl.BlockSpec((32, T), lambda b: (b, 0), memory_space=pltpu.VMEM)
+    at, ar = pl.pallas_call(
+        kernel, grid=(g,),
+        in_specs=[
+            pl.BlockSpec((8, maxc + 1), lambda b: (b // 8, 0),
+                         memory_space=pltpu.SMEM),
+            pl.BlockSpec((8, maxc), lambda b: (b // 8, 0),
+                         memory_space=pltpu.SMEM),
+            pl.BlockSpec((32, 8), lambda b: (b, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec(memory_space=pltpu.VMEM),
+        ],
+        out_specs=(spec, spec),
+        out_shape=(jax.ShapeDtypeStruct((g * 32, T), jnp.float32),
+                   jax.ShapeDtypeStruct((g * 32, T), jnp.int32)),
+        interpret=True,
+    )(cand_k, ctn_rows, rays, tris)
+    return np.asarray(at), np.asarray(ar)
+
+
+@pytest.mark.parametrize("lists", ["real", "all_full", "half"])
+def test_block_tiles_count_lists_match_pallas(wavefront, lists):
+    """The block-shared kernel on real union lists and on chunk_bench_r4's
+    synthetic all-full and half-count lists."""
+    w = wavefront
+    cand = w["candg"].numpy().copy()
+    ctn = w["ctng"].numpy().copy()
+    g, maxc = cand.shape
+    if lists != "real":
+        n = maxc if lists == "all_full" else maxc // 2
+        cand = np.full((g, maxc), -1, np.int32)
+        cand[:, :n] = np.arange(n, dtype=np.int32) % w["k2"]
+        ctn = np.full((g, maxc), BIG_T, np.float32)
+        ctn[:, :n] = 0.0
+    want_at, want_ar = _block_pallas(cand, ctn, w["rays"].numpy(),
+                                     w["tris"].numpy(), w["k2"])
+    at, ar = PL.block_tiles(dummy_lists(torch.tensor(cand), w["k2"]),
+                            w["rays"], w["tris"])
+    np.testing.assert_array_equal(ar.numpy(), want_ar)
+    np.testing.assert_allclose(at.numpy(), want_at, rtol=T_TOL, atol=T_TOL)
+
+
+def test_list_tiles_plain_grouping_is_invisible(wavefront):
+    """list_tiles_plain run block by block, as the kernel at each
+    rays_per_block walks the rays (the last block ragged, each block's
+    rounds only up to its own last live one), gives the same at / ar as
+    one call; so does the CPU wrapper at every rays_per_block."""
+    w = wavefront
+    cand = dummy_lists(w["cand"], w["k2"])[:100].contiguous()
+    rays = w["rays"][:100].contiguous()
+    at1, ar1 = PL.list_tiles_plain(cand, rays, w["tris"])
+    for k in PL.LIST_RAYS_PER_BLOCK[1:]:
+        parts = [PL.list_tiles_plain(cand[i:i + k], rays[i:i + k], w["tris"])
+                 for i in range(0, cand.shape[0], k)]
+        assert torch.equal(torch.cat([p[0] for p in parts]), at1)
+        assert torch.equal(torch.cat([p[1] for p in parts]), ar1)
+        at, ar = PL.list_tiles(cand, rays, w["tris"], rays_per_block=k)
+        assert torch.equal(at, at1) and torch.equal(ar, ar1)
+
+
+# ---- wrappers, bounds, workloads --------------------------------------
+
+def test_probe_wrappers_dispatch_on_device(wavefront):
+    """CPU tensors run the plain versions and count no launch; asking for
+    the CUDA kernel with CPU tensors raises; bad arguments raise."""
+    w = wavefront
+    cand = dummy_lists(w["cand"], w["k2"])
+    PK.reset_launch_counts()
+    assert torch.equal(PK.list_tiles_min(cand, w["rays"], w["tris"]),
+                       PK.list_tiles_min_plain(cand, w["rays"], w["tris"]))
+    sm = feature_smoke.gather_inputs("cpu")
+    PK.smoke_gather(sm["cid"], sm["table"], sm["rays"])
+    assert set(PK.LAUNCHES.values()) == {0}
+    with pytest.raises(ValueError):
+        PK.list_tiles_min(cand, w["rays"], w["tris"], impl="cuda")
+    with pytest.raises(ValueError):
+        PK.smoke_gather(sm["cid"], sm["table"], sm["rays"], impl="cuda")
+    mr = micro_round.workload("cpu", nb=2, rounds=2, k2=8)
+    with pytest.raises(ValueError):
+        PK.round_probe(mr["cand"], mr["tris"], "dynmt", subblocks=4)
+    with pytest.raises(ValueError):
+        PK.round_probe(mr["cand"], mr["tris"], "copy")
+    with pytest.raises(TypeError):
+        PK.round_probe(mr["cand"].long(), mr["tris"], "dynmt")
+    with pytest.raises(ValueError):
+        PL.list_tiles(cand, w["rays"], w["tris"], rays_per_block=4)
+    mo = feature_smoke.mosaic_inputs("cpu")
+    with pytest.raises(ValueError):
+        PK.mosaic_probe(mo["ns"], mo["cand"], mo["x"], "loop")
+
+
+def test_bounds_count_live_work():
+    """Operations count only live rounds; bytes count what the output
+    depends on: each named tile once, the 7 ray columns the list kernels
+    read, every output once."""
+    k2 = 3
+    tris = torch.zeros((k2 + 1, 9, T))
+    cand = torch.tensor([[0, 1, k2, k2], [1, k2, k2, k2]], dtype=torch.int32)
+    rays = torch.zeros((64, 8))
+    ops, nbytes = bounds.block_tiles_work(cand, rays, tris)
+    assert ops == 3 * T * (bounds.EDGE_OPS + 32 * bounds.MT8_OPS)
+    assert nbytes == 8 * 4 + 64 * 7 * 4 + 2 * bounds.TILE_BYTES + 64 * T * 8
+    ops, nbytes = bounds.list_tiles_work(cand, rays[:2], tris)
+    assert ops == 3 * T * (bounds.EDGE_OPS + bounds.MT8_OPS)
+    ms, by = bounds.bound(67e9, 0)
+    assert by == "operations" and ms == pytest.approx(1.0)
+    assert bounds.bound(0, 3.35e9) == (pytest.approx(1.0), "bytes")
+    # the copy rounds read plane 0, lane 0 of each tile they name
+    rc = torch.tensor([[0, 5], [5, 5]], dtype=torch.int32)
+    rt = torch.zeros((8, 9, T))
+    assert bounds.round_probe_work(rc, rt, "dyncopy")[1] == 4 * 4 + 2 * 4 + 8
+    assert bounds.round_probe_work(rc, rt, "statcopy")[1] == 4 + 8
+    assert bounds.round_probe_work(rc, rt, "dynmt")[1] == (
+        4 * 4 + 2 * bounds.TILE_BYTES + 8)
+    # smoke_gather reads column 0 of rays and the rows cid names
+    g = feature_smoke.gather_inputs("cpu")
+    n = g["rays"].shape[0]
+    assert bounds.smoke_gather_work(g["cid"], g["table"], g["rays"])[1] == (
+        8 * 4 + n * 4 + 8 * T * 4 + n * 4)
+    # mosaic_probe: the while loop ends after the first round whose column
+    # max is <= -1; with when it reads the cand columns of those rounds
+    mo = feature_smoke.mosaic_inputs("cpu")
+    x = mo["x"].clone()
+    x[:, 2] = -5.0
+    assert bounds.mosaic_probe_rounds(mo["ns"], x, "all") == 3
+    assert bounds.mosaic_probe_rounds(mo["ns"], x, "while") == 5
+    assert bounds.mosaic_probe_rounds(mo["ns"], x, "ds") == 4
+    assert bounds.mosaic_probe_work(mo["ns"], mo["cand"], x, "all")[1] == (
+        4 + 8 * T * 4 + 8 * 3 * 4 + 8 * T * 4)
+
+
+def test_round_probe_time_check():
+    """The work check of the zero-output MT variants passes their times
+    as measured and raises when an MT variant runs as fast as its round
+    without the MT."""
+    times = dict(dyncopy=0.314, statcopy=0.0903, mtonly=0.2761,
+                 dynmt=0.4646, dynmt_noeps=0.4595)
+    micro_round.time_check(times)
+    with pytest.raises(RuntimeError, match="dynmt"):
+        micro_round.time_check(dict(times, dynmt=0.32))
+    with pytest.raises(RuntimeError, match="mtonly"):
+        micro_round.time_check(dict(times, mtonly=0.09))
+
+
+def test_chunk_workload_small():
+    """The count-list sweep's lists at a small size: real union lists and
+    synthetic ones with the counts the script used."""
+    w = chunk.workload("cpu", n_tris=2_000, n_rays=256)
+    g = 256 // PL.RB_SHARE
+    counts = {k: int((v >= 0).sum(dim=1).max())
+              for k, v in w["lists"].items()}
+    assert counts["synthetic all-full (96 rounds)"] == chunk.MAXC
+    assert counts["synthetic count=48"] == 48
+    assert counts["synthetic count=24"] == 24
+    assert all(v.shape == (g, chunk.MAXC) for v in w["lists"].values())
+    at, _ar = PL.block_tiles(dummy_lists(w["lists"]["real union lists"],
+                                         w["k2"]), w["rays"], w["tris"])
+    assert (at < BIG_T).any()
+
+
+# ---- the entry points run on the card unless asked for the CPU --------
+
+ENTRY_POINTS = {
+    "dragon_scene": (procedural.dragon_scene, lambda f, **kw: f(
+        64, with_sky=False, **kw)),
+    "make_materials": (pscene.make_materials, lambda f, **kw: f(
+        [(0, 0, 0)], [(1, 1, 1)], [0.0], [1.0], **kw)),
+    "make_scene": (pscene.make_scene, lambda f, **kw: f(
+        np.zeros((2, 3, 3), np.float32), [0, 0], pscene.make_materials(
+            [(0, 0, 0)], [(1, 1, 1)], [0.0], [1.0], device="cpu"), **kw)),
+    "Camera.create": (pcam.Camera.create, lambda f, **kw: f(45.0, **kw)),
+    "build_clusters": (PC.build_clusters, lambda f, **kw: f(
+        procedural.dragon_standin(256), order="morton", **kw)),
+    **{f"camera {name}": (fn, lambda f, **kw: f(**kw))
+       for name, fn in pcam.PRESETS.items()},
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(name, monkeypatch):
+    fn, call = ENTRY_POINTS[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call(fn)
+    out = call(fn, device="cpu")                  # asked for: the CPU
+    assert out is not None

@@ -1,9 +1,10 @@
 """Native binned-SAH builder, loaded with ctypes (counterpart of
 sycl_ray_tracing_tpu/native/__init__.py:21-101).
 
-The C++ source is the JAX package's ``native/bvh_builder.cpp``, read by
-path and never copied.  At first use it is compiled with g++ into this
-package's ``build/`` directory (which .gitignore lists).  A build failure
+The C++ source is this package's own ``csrc/bvh_builder.cpp``, a copy of
+the JAX package's ``native/bvh_builder.cpp`` kept unchanged, so both
+packages build the same cluster order.  At first use it is compiled with
+g++ into this package's ``build/`` directory (which .gitignore lists).  A build failure
 raises: the cluster build never falls back to Morton order unless the
 caller asks for ``order="morton"``.
 """
@@ -21,7 +22,7 @@ import numpy as np
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG_DIR / "build"
-SOURCE = PKG_DIR.parent / "sycl_ray_tracing_tpu" / "native" / "bvh_builder.cpp"
+SOURCE = PKG_DIR / "csrc" / "bvh_builder.cpp"
 # no -march=native: the SAH split choices must not depend on the host's
 # FMA contraction, so every machine builds the same cluster order
 CXXFLAGS = ["-O3", "-fPIC", "-shared", "-std=c++20", "-ffp-contract=off"]

@@ -11,11 +11,17 @@ Phases (any failure exits non-zero):
      native SAH builder).
   2. Kernels vs their plain torch versions on the card, on inputs captured
      from the main path itself: the 32768-ray primary launch and the fused
-     ~98k-ray 3-query launch of the first bounce (block-shared kernel), and
-     the escalation launches (per-ray kernel).  at/ar must be bit-identical,
-     and so must _run's (t, packed, resolved, overflow).  Then certified
-     closest hits are held against the brute-force triangle oracle on a
-     small ray subset.
+     ~98k-ray 3-query launch of the first bounce (block-shared kernel, at
+     both of its rays-per-thread variants; at/ar/stop), and the escalation
+     launches (per-ray kernel; at/ar).  They must be bit-identical, and so
+     must _run's (t, packed, resolved, overflow).  For the bounce-1 launch
+     it prints the live block-rounds and those the tail guard let run, the
+     time back to back (each variant, and the main one with the lists in
+     build order instead of longest first), the bound on the rounds run
+     beside the bound on all live rounds, and the kernel's registers,
+     local (spill) bytes and blocks per SM.  Then certified closest hits
+     are held against the brute-force triangle oracle on a small ray
+     subset.
   3. The main path: render() of the 200k-triangle dragon + HDR sky at
      512x512, 1 spp, 8 bounces, list tracer, shared estimator, 32768-ray
      tiles — warm, with the kernels' launch counters reset just before;
@@ -54,6 +60,8 @@ BOUNCES = 8
 TILE = 32768
 LISTTRACE_CU = "sycl_ray_tracing_tpu_torch/csrc/listtrace.cu"
 PROBES_CU = "sycl_ray_tracing_tpu_torch/csrc/probes.cu"
+BLOCK_REPLACES = "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:298"
+LIST_REPLACES = "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:245"
 
 
 def log(msg: str):
@@ -75,9 +83,10 @@ class Capture:
             self._orig[name] = getattr(self.lt, name)
 
         def tiles_hook(name):
-            def hook(cand, rays, tris, impl=None):
-                self.tiles[name].append((cand.clone(), rays.clone()))
-                return self._orig[name](cand, rays, tris, impl=impl)
+            def hook(*args, impl=None):
+                # (cand, ctn, rays) or (cand, rays); tris is the scene's
+                self.tiles[name].append(tuple(a.clone() for a in args[:-1]))
+                return self._orig[name](*args, impl=impl)
             return hook
 
         def run_hook(scene, o, d, tl, maxc, any_hit, **kw):
@@ -99,7 +108,8 @@ class Capture:
 class LaunchTimer:
     """Times every list-kernel launch of a render with CUDA events around
     the wrapper call (so an idle card's wait for the host's launch path
-    is included) and keeps its inputs, for its bound."""
+    is included) and keeps its inputs (and the block kernel's stop), for
+    its bound."""
 
     def __init__(self, lt):
         self.lt = lt
@@ -110,13 +120,14 @@ class LaunchTimer:
         import torch
 
         def hook(name):
-            def timed(cand, rays, tris, **kw):
+            def timed(*args, **kw):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                out = self._orig[name](cand, rays, tris, **kw)
+                out = self._orig[name](*args, **kw)
                 end.record()
-                self.launches.append((name, start, end, cand, rays, tris))
+                extra = out[2:]                     # block_tiles: (stop,)
+                self.launches.append((name, start, end, args + extra))
                 return out
             return timed
 
@@ -130,14 +141,15 @@ class LaunchTimer:
             setattr(self.lt, name, fn)
 
     def per_kernel(self, works, bounds) -> dict:
-        """{name: (launches, kernel ms, sum of per-launch bound ms)}."""
+        """{name: (launches, kernel ms, sum of per-launch bound ms)};
+        works[name] maps a launch's arguments (and stop) to its work."""
         import torch
 
         torch.cuda.synchronize()
         out = {}
-        for name, start, end, cand, rays, tris in self.launches:
+        for name, start, end, args in self.launches:
             n, ms, bms = out.get(name, (0, 0.0, 0.0))
-            b_ms, _by = bounds.bound(*works[name](cand, rays, tris))
+            b_ms, _by = bounds.bound(*works[name](*args))
             out[name] = (n + 1, ms + start.elapsed_time(end), bms + b_ms)
         return out
 
@@ -148,6 +160,82 @@ def max_abs_err(a, b) -> float:
     diff = (a.double() - b.double()).abs()
     diff = diff[torch.isfinite(diff)]
     return float(diff.max()) if diff.numel() else 0.0
+
+
+def live_note(cand, tris) -> str:
+    live = (cand != tris.shape[0] - 1).sum(dim=1).float()
+    return (f"{cand.shape[0]} lists, {int(live.sum())} live list rounds (per "
+            f"list mean {float(live.mean()):.2f}, p90 "
+            f"{float(live.quantile(0.9)):.0f}, max {int(live.max())})")
+
+
+def block_tiles_phase(lt, bounds, cuda_ms, tris, prim_launch, bounce_launch,
+                      card) -> dict:
+    """Phase 2 for the block kernel: bit-identity of (at, ar, stop) with
+    the plain version at both captured launches (every rays-per-thread
+    variant at the bounce-1 launch); then the bounce-1 launch's rounds,
+    times, bounds, registers and occupancy.  Returns its kernels entry."""
+    import torch
+
+    err = 0.0
+    for label, (cand, ctn, rays) in (("primary", prim_launch),
+                                     ("bounce 1", bounce_launch)):
+        want = lt.block_tiles_plain(cand, ctn, rays, tris)
+        variants = lt.BLOCK_RAYS_PER_THREAD if label == "bounce 1" \
+            else lt.BLOCK_RAYS_PER_THREAD[:1]
+        for rpt in variants:
+            out = lt.block_tiles_cuda(cand, ctn, rays, tris, rpt)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(out, want))
+            err = max(err, max_abs_err(out[0], want[0]))
+            log(f"phase 2 block_tiles {label} launch, {rpt} rays per "
+                f"thread: rays {rays.shape[0]}, maxc {cand.shape[1]}, "
+                f"(at, ar, stop) bit-identical={same}")
+            if not same:
+                raise RuntimeError(f"block_tiles disagrees with its plain "
+                                   f"version (max |dt| {err})")
+        stop = want[2]          # after the loop: the bounce-1 launch's
+        fired = int((stop < lt.list_counts(cand, tris.shape[0] - 1)).sum())
+        log(f"phase 2 block_tiles {label} launch: {live_note(cand, tris)}; "
+            f"the guard let {bounds.rounds_run(cand, tris, stop)} of "
+            f"{bounds.rounds_run(cand, tris)} live block-rounds run "
+            f"({fired} lists stopped early)")
+
+    cand, ctn, rays = bounce_launch
+    times = {rpt: cuda_ms(lambda: lt.block_tiles_cuda(cand, ctn, rays, tris,
+                                                      rpt), 20)
+             for rpt in lt.BLOCK_RAYS_PER_THREAD}
+    in_order = torch.arange(cand.shape[0], dtype=torch.int32,
+                            device=cand.device)
+    order_ms = cuda_ms(lambda: lt.block_tiles_cuda(cand, ctn, rays, tris,
+                                                   order=in_order), 20)
+    ms = cuda_ms(lambda: lt.block_tiles(cand, ctn, rays, tris), 20)
+    plain_ms = cuda_ms(lambda: lt.block_tiles_plain(cand, ctn, rays, tris), 3)
+    entry = kernel_entry("block_tiles", LISTTRACE_CU, BLOCK_REPLACES, ms,
+                         plain_ms,
+                         bounds.block_tiles_work(cand, rays, tris, stop), err,
+                         bounds)
+    all_ms, all_by = bounds.bound(*bounds.block_tiles_work(cand, rays, tris))
+    log(f"phase 2 block_tiles bounce-1 launch: {ms:.4f} ms kernel back to "
+        f"back ({lt.BLOCK_RAYS_PER_THREAD[0]} rays per thread, lists "
+        f"longest first) vs {plain_ms:.4f} ms plain; "
+        + ", ".join(f"{rpt} rays per thread {t:.4f} ms"
+                    for rpt, t in times.items())
+        + f"; lists in build order {order_ms:.4f} ms; bound on the rounds "
+        f"run {entry['bound_ms']:.4f} ms by {entry['bound_by']} "
+        f"({entry['ops']:.4g} operations, {entry['bytes']:.4g} bytes), "
+        f"bound on all live rounds {all_ms:.4f} ms by {all_by} ({card})")
+    for rpt in lt.BLOCK_RAYS_PER_THREAD:
+        info = lt.block_tiles_info(rpt)
+        log(f"phase 2 block_tiles {rpt} rays per thread: "
+            f"{info['registers']} registers, {info['local_bytes']} local "
+            f"(spill) bytes per thread, {info['threads']} threads per "
+            f"block, {info['blocks_per_sm']} blocks ({info['warps_per_sm']} "
+            f"warps) per SM")
+        if info["local_bytes"] and rpt == lt.BLOCK_RAYS_PER_THREAD[0]:
+            raise RuntimeError(f"block_tiles at {rpt} rays per thread "
+                               "spills to local memory")
+    return entry
 
 
 def kernel_entry(name, source, replaces, ms, plain_ms, work, err, bounds):
@@ -264,46 +352,34 @@ def main() -> int:
                 "launches; expected the primary and the first bounce's")
         tris = lt._tiles_with_dummy(scene.clusters)
         prim_launch, bounce_launch = blocks[0], max(
-            blocks, key=lambda c: c[1].shape[0])
-        esc_launch = max(lists, key=lambda c: c[1].shape[0])
-        kernels = []
-        for name, (cand, rays), fn, plain, work, replaces in [
-            ("block_tiles", bounce_launch, lt.block_tiles,
-             lt.block_tiles_plain, bounds.block_tiles_work,
-             "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:298"),
-            ("list_tiles", esc_launch, lt.list_tiles, lt.list_tiles_plain,
-             bounds.list_tiles_work,
-             "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:245"),
-        ]:
-            checks = [(cand, rays)]
-            if name == "block_tiles":
-                checks.append(prim_launch)
-            err = 0.0
-            for c, r in checks:
-                at_k, ar_k = fn(c, r, tris)
-                at_p, ar_p = plain(c, r, tris)
-                torch.cuda.synchronize()
-                same = torch.equal(at_k, at_p) and torch.equal(ar_k, ar_p)
-                err = max(err, max_abs_err(at_k, at_p))
-                log(f"phase 2 {name}: rays {r.shape[0]}, maxc "
-                    f"{c.shape[1]}, bit-identical={same}")
-                if not same:
-                    raise RuntimeError(f"{name} disagrees with its plain "
-                                       f"version (max |dt| {err})")
-            ms = cuda_ms(lambda: fn(cand, rays, tris), 20)
-            plain_ms = cuda_ms(lambda: plain(cand, rays, tris), 3)
-            entry = kernel_entry(name, LISTTRACE_CU, replaces, ms, plain_ms,
-                                 work(cand, rays, tris), err, bounds)
-            live = (cand != tris.shape[0] - 1).sum(dim=1).float()
-            log(f"phase 2 {name}: {ms:.4f} ms kernel vs {plain_ms:.4f} ms "
-                f"plain per launch at {rays.shape[0]} rays, "
-                f"{cand.shape[0]} lists, {int(live.sum())} live list rounds "
-                f"(per list mean {float(live.mean()):.2f}, p90 "
-                f"{float(live.quantile(0.9)):.0f}, max {int(live.max())}); "
-                f"bound {entry['bound_ms']:.4f} ms by "
-                f"{entry['bound_by']} ({entry['ops']:.4g} operations, "
-                f"{entry['bytes']:.4g} bytes) ({card})")
-            kernels.append(entry)
+            blocks, key=lambda c: c[-1].shape[0])
+        esc_launch = max(lists, key=lambda c: c[-1].shape[0])
+        kernels = [block_tiles_phase(lt, bounds, cuda_ms, tris, prim_launch,
+                                     bounce_launch, card)]
+
+        # the per-ray kernel at the largest escalation launch
+        cand, rays = esc_launch
+        at_k, ar_k = lt.list_tiles(cand, rays, tris)
+        at_p, ar_p = lt.list_tiles_plain(cand, rays, tris)
+        torch.cuda.synchronize()
+        same = torch.equal(at_k, at_p) and torch.equal(ar_k, ar_p)
+        err = max_abs_err(at_k, at_p)
+        log(f"phase 2 list_tiles: rays {rays.shape[0]}, maxc "
+            f"{cand.shape[1]}, bit-identical={same}")
+        if not same:
+            raise RuntimeError(f"list_tiles disagrees with its plain version "
+                               f"(max |dt| {err})")
+        ms = cuda_ms(lambda: lt.list_tiles(cand, rays, tris), 20)
+        plain_ms = cuda_ms(lambda: lt.list_tiles_plain(cand, rays, tris), 3)
+        work = bounds.list_tiles_work(cand, rays, tris)
+        entry = kernel_entry("list_tiles", LISTTRACE_CU, LIST_REPLACES, ms,
+                             plain_ms, work, err, bounds)
+        log(f"phase 2 list_tiles: {ms:.4f} ms kernel vs {plain_ms:.4f} ms "
+            f"plain per launch at {rays.shape[0]} rays, "
+            f"{live_note(cand, tris)}; bound {entry['bound_ms']:.4f} ms by "
+            f"{entry['bound_by']} ({entry['ops']:.4g} operations, "
+            f"{entry['bytes']:.4g} bytes) ({card})")
+        kernels.append(entry)
 
         # _run's (t, packed, resolved, overflow): kernels == plain versions
         for label, run in (("primary", cap.runs[0]),
@@ -370,7 +446,8 @@ def main() -> int:
         # one more frame with every list-kernel launch timed and bounded
         with LaunchTimer(lt) as timer:
             pt.render(scene, cam, cfg, key)
-        works = {"block_tiles": bounds.block_tiles_work,
+        works = {"block_tiles": lambda cand, ctn, rays, tris, stop:
+                 bounds.block_tiles_work(cand, rays, tris, stop),
                  "list_tiles": bounds.list_tiles_work}
         for name, (n, ms, b_ms) in timer.per_kernel(works, bounds).items():
             log(f"phase 3 per frame {name}: {n} launches, {ms:.4f} ms kernel "

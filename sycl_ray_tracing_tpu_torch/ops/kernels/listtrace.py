@@ -10,9 +10,11 @@ then the compacted per-ray escalation pass and the honest overflow flag
 (``_run``).
 
 Kernels (csrc/listtrace.cu, CUDA C++ for sm_90a):
-  * ``block_tiles`` replaces ``_block_kernel_impl``: one list per block of
-    RB_SHARE=32 sorted rays; it runs the primaries and every fused bounce
-    query.
+  * ``block_tiles`` replaces ``_block_kernel_impl`` with its tail guard:
+    one list per block of RB_SHARE=32 sorted rays; it runs the primaries
+    and every fused bounce query.  After GROUP rounds, before each CHUNK of
+    rounds, a block stops once no ray can still gain (the usefulness guard
+    and the any-hit exit of ``_tail_guard``); it returns where it stopped.
   * ``list_tiles`` replaces ``_list_kernel_impl``: each ray walks its own
     list; it runs the escalation pass (one ray per CUDA block; the probes
     also run it at 8, 16 and 32 rays per block, the TPU kernel's RB).
@@ -52,6 +54,8 @@ DEFAULT_MAXC = 32  # per-ray candidate slots
 DEFAULT_MAXC_SHARE = 128  # block-union slots
 ESC_CAP_DIV = 4    # escalation compaction: cap ~= B/4 rows (>= 256)
 HIER_MAXS = 16     # supercluster slots per block in the hierarchical build
+GROUP = 8          # block kernel: rounds before the first tail guard
+CHUNK = 16         # block kernel: rounds between tail guards
 MAX_CLUSTERS = 8192  # 13-bit candidate ids / 20-bit packed winners
 LIST_SHARE_DEFAULT = True
 
@@ -59,6 +63,7 @@ CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 CSRC = CSRC_DIR / "listtrace.cu"
 HEADERS = [CSRC_DIR / "mt8.cuh"]
 LIST_RAYS_PER_BLOCK = (1, 8, 16, 32)
+BLOCK_RAYS_PER_THREAD = (8, 16)  # block_tiles variants, the first the main
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -92,12 +97,15 @@ def load_cuda_library() -> ctypes.CDLL:
         path = build_shared_library([CSRC], "liblisttrace", [nvcc_path()],
                                     NVCC_FLAGS, HEADERS)
         lib = ctypes.CDLL(str(path))
-        for name, nint in (("srt_block_tiles", 3), ("srt_list_tiles", 3),
-                           ("srt_list_tiles_rays", 4)):
+        for name, nptr, nint in (("srt_block_tiles", 9, 4),
+                                 ("srt_list_tiles", 5, 3),
+                                 ("srt_list_tiles_rays", 5, 4)):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * nint + [
+            fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * nint + [
                 ctypes.c_void_p]
+        lib.srt_block_tiles_info.restype = ctypes.c_int
+        lib.srt_block_tiles_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
         _cuda_lib = lib
     return _cuda_lib
 
@@ -141,22 +149,47 @@ def _live_rounds(cand, dummy: int) -> int:
     return int(cols[-1]) + 1 if cols.numel() else 0
 
 
-def block_tiles_plain(cand, rays, tris):
+def list_counts(cand, dummy: int):
+    """Per list: one past its last real slot (0 if it has none).  The exact
+    builds fill a list's real slots first, so this is its candidate count,
+    the TPU kernel's count gate."""
+    slot = torch.arange(1, cand.shape[1] + 1, dtype=torch.int32,
+                        device=cand.device)
+    return torch.where(cand != dummy, slot, 0).amax(dim=1)
+
+
+def block_tiles_plain(cand, ctn, rays, tris):
     """Plain torch version of the block-shared kernel: a loop over rounds
-    of _mt8 on [blocks, RB_SHARE, 128] tensors."""
-    nb, _ = cand.shape
+    of _mt8 on [blocks, RB_SHARE, 128] tensors, with the tail guard as a
+    per-block active mask updated before each chunk (c0 = GROUP +
+    k*CHUNK below the list's count): a block stops at c0 when none of its
+    rays is useful, i.e. ctn[c0] < best (min over lanes) and not an
+    any-hit ray already blocked (best < t_lim).  A stopped block runs the
+    dummy tile, which never updates.  Returns (at, ar, stop)."""
+    nb, maxc = cand.shape
+    dummy = tris.shape[0] - 1
     r = rays.view(nb, RB_SHARE, 8)
     ox, oy, oz, dx, dy, dz, tl = (r[:, :, c:c + 1] for c in range(7))
     at = tl.expand(nb, RB_SHARE, T_CLUSTER).clone()
     ar = torch.full_like(at, -1, dtype=torch.int32)
-    for rnd in range(_live_rounds(cand, tris.shape[0] - 1)):
-        tile = tris[cand[:, rnd].long()]                 # [nb, 9, T]
+    anyhit, tlim = r[:, :, 7] > 0.0, r[:, :, 6]
+    count = list_counts(cand, dummy)
+    stop = torch.full((nb,), maxc, dtype=torch.int32, device=cand.device)
+    active = torch.ones((nb,), dtype=torch.bool, device=cand.device)
+    for rnd in range(_live_rounds(cand, dummy)):
+        if rnd >= GROUP and (rnd - GROUP) % CHUNK == 0:
+            bt = at.amin(dim=2)                          # [nb, RB_SHARE]
+            useful = (ctn[:, rnd:rnd + 1] < bt) & ~(anyhit & (bt < tlim))
+            fire = active & (rnd < count) & ~useful.any(dim=1)
+            stop = torch.where(fire, rnd, stop)
+            active = active & ~fire
+        tile = tris[torch.where(active, cand[:, rnd], dummy).long()]
         planes = [tile[:, c:c + 1, :] for c in range(9)]
         t = _mt8(*planes, ox, oy, oz, dx, dy, dz, tl)
         upd = t < at
         at = torch.where(upd, t, at)
         ar = torch.where(upd, rnd, ar)
-    return at.view(-1, T_CLUSTER), ar.view(-1, T_CLUSTER)
+    return at.view(-1, T_CLUSTER), ar.view(-1, T_CLUSTER), stop
 
 
 def list_tiles_plain(cand, rays, tris):
@@ -193,6 +226,10 @@ def _check_tile_args(cand, rays, tris, rows: int):
         raise ValueError("cand, rays and tris must share a device")
 
 
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def _launch(name: str, cand, rays, tris, rows: int, grid: int, *extra,
             entry=None):
     if not cand.is_cuda:
@@ -203,11 +240,10 @@ def _launch(name: str, cand, rays, tris, rows: int, grid: int, *extra,
     ar = torch.empty((rows, T_CLUSTER), dtype=torch.int32, device=cand.device)
     if grid == 0:
         return at, ar
-    stream = torch.cuda.current_stream(cand.device).cuda_stream
     rc = getattr(lib, entry or f"srt_{name}")(
         cand.data_ptr(), rays.data_ptr(), tris.data_ptr(), at.data_ptr(),
         ar.data_ptr(), grid, cand.shape[1], tris.shape[0] - 1, *extra,
-        stream,
+        _stream(cand),
     )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
@@ -215,17 +251,78 @@ def _launch(name: str, cand, rays, tris, rows: int, grid: int, *extra,
     return at, ar
 
 
-def block_tiles(cand, rays, tris, impl=None):
-    """Block-shared list kernel.  cand i32 [nb, maxc] (dummy id K2 =
-    tris.shape[0]-1 marks empty slots), rays f32 [nb*32, 8] (o3 d3 t_lim
-    anyhit), tris f32 [K2+1, 9, 128] -> (at f32, ar i32) [nb*32, 128]."""
+def block_tiles(cand, ctn, rays, tris, impl=None):
+    """Block-shared list kernel with the tail guard.  cand i32 [nb, maxc]
+    (dummy id K2 = tris.shape[0]-1 marks empty slots), ctn f32 [nb, maxc]
+    entry-t (ascending along a list), rays f32 [nb*32, 8] (o3 d3 t_lim
+    anyhit), tris f32 [K2+1, 9, 128] -> (at f32, ar i32 [nb*32, 128],
+    stop i32 [nb]: the first round a block did not run, maxc if its guard
+    never fired)."""
     _check_tile_args(cand, rays, tris, cand.shape[0] * RB_SHARE)
+    if ctn.dtype != torch.float32 or ctn.shape != cand.shape \
+            or not ctn.is_contiguous() or ctn.device != cand.device:
+        raise ValueError("ctn must be contiguous float32 shaped like cand, "
+                         "on cand's device")
     if impl == "plain" or (impl is None and cand.device.type == "cpu"):
-        return block_tiles_plain(cand, rays, tris)
+        return block_tiles_plain(cand, ctn, rays, tris)
     if impl not in (None, "cuda"):
         raise ValueError(f"bad impl {impl!r}")
-    return _launch("block_tiles", cand, rays, tris, rays.shape[0],
-                   cand.shape[0])
+    return block_tiles_cuda(cand, ctn, rays, tris)
+
+
+def block_tiles_cuda(cand, ctn, rays, tris,
+                     rays_per_thread: int = BLOCK_RAYS_PER_THREAD[0],
+                     order=None):
+    """Launch the block kernel at ``rays_per_thread`` (8 or 16; the main
+    path uses the first of BLOCK_RAYS_PER_THREAD), its grid taking the
+    lists in ``order`` (i32 [nb], a permutation; the main path's None:
+    longest first, sorted on the card).  Arguments as block_tiles,
+    already checked."""
+    if not cand.is_cuda:
+        raise ValueError("block_tiles: the CUDA kernel needs CUDA tensors")
+    if rays_per_thread not in BLOCK_RAYS_PER_THREAD:
+        raise ValueError(f"rays_per_thread must be one of "
+                         f"{BLOCK_RAYS_PER_THREAD}, got {rays_per_thread}")
+    if tris.data_ptr() % 16:
+        raise ValueError("tris must be 16-byte aligned (cp.async)")
+    lib = load_cuda_library()
+    nb, maxc = cand.shape
+    dummy = tris.shape[0] - 1
+    at = torch.empty((nb * RB_SHARE, T_CLUSTER), dtype=torch.float32,
+                     device=cand.device)
+    ar = torch.empty_like(at, dtype=torch.int32)
+    stop = torch.empty((nb,), dtype=torch.int32, device=cand.device)
+    if nb == 0:
+        return at, ar, stop
+    if order is None:
+        scratch = torch.empty((2 * nb + maxc + 1,), dtype=torch.int32,
+                              device=cand.device)
+        order_p, scratch_p = None, scratch.data_ptr()
+    elif order.dtype != torch.int32 or order.shape != (nb,) \
+            or order.device != cand.device:
+        raise ValueError("order must be int32 [nb] on cand's device")
+    else:
+        order_p, scratch_p = order.data_ptr(), None
+    rc = lib.srt_block_tiles(
+        cand.data_ptr(), ctn.data_ptr(), rays.data_ptr(), tris.data_ptr(),
+        order_p, scratch_p, at.data_ptr(), ar.data_ptr(), stop.data_ptr(),
+        nb, maxc, dummy, rays_per_thread, _stream(cand))
+    if rc != 0:
+        raise RuntimeError(f"block_tiles launch failed: CUDA error {rc}")
+    LAUNCHES["block_tiles"] += 1
+    return at, ar, stop
+
+
+def block_tiles_info(rays_per_thread: int = BLOCK_RAYS_PER_THREAD[0]) -> dict:
+    """The built block kernel's registers and local (spill) bytes per
+    thread, threads per block and resident blocks and warps per SM."""
+    info = (ctypes.c_int * 4)()
+    rc = load_cuda_library().srt_block_tiles_info(rays_per_thread, info)
+    if rc != 0:
+        raise RuntimeError(f"block_tiles_info failed: CUDA error {rc}")
+    regs, local, blocks, threads = info
+    return dict(registers=regs, local_bytes=local, threads=threads,
+                blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32)
 
 
 def list_tiles(cand, rays, tris, impl=None, rays_per_block: int = 1):
@@ -349,8 +446,11 @@ def _run_once(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int, any_hit,
             cand, ctn, _of = candidate_clusters(
                 scene, rg[:, 0:3], rg[:, 3:6], rg[:, 6], maxc)
         cand_k = torch.where(cand >= 0, cand, k2).to(torch.int32)
-        tiles = block_tiles if share else list_tiles
-        at, ar = tiles(cand_k.contiguous(), rg, tris, impl=impl)
+        if share:
+            at, ar, _stop = block_tiles(cand_k.contiguous(), ctn, rg, tris,
+                                        impl=impl)
+        else:
+            at, ar = list_tiles(cand_k.contiguous(), rg, tris, impl=impl)
 
         # reduction tail: per-ray min over lanes; among lanes at the min
         # the smallest lane wins, then that lane's round (lane-major pack)

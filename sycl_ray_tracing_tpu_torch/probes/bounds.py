@@ -16,6 +16,11 @@ from __future__ import annotations
 
 import torch
 
+from sycl_ray_tracing_tpu_torch.ops.kernels.listtrace import (
+    CHUNK,
+    GROUP,
+    list_counts,
+)
 from sycl_ray_tracing_tpu_torch.ops.kernels.probes import MOSAIC_FEATURES
 
 FP32_OPS_PER_S = 67e12
@@ -55,14 +60,40 @@ def _tiles(cand, dummy: int) -> int:
     return int((ids != dummy).sum()) * TILE_BYTES
 
 
-def block_tiles_work(cand, rays, tris) -> tuple[float, float]:
-    """(operations, bytes) of block_tiles on these lists."""
+def _ran(cand, dummy: int, stop=None):
+    """[blocks, maxc] bool: the live rounds before each block's stop."""
+    ran = cand != dummy
+    if stop is not None:
+        slot = torch.arange(cand.shape[1], device=cand.device)
+        ran = ran & (slot[None, :] < stop[:, None])
+    return ran
+
+
+def rounds_run(cand, tris, stop=None) -> int:
+    """Live block-rounds before ``stop`` (all of them without one)."""
+    return int(_ran(cand, tris.shape[0] - 1, stop).sum())
+
+
+def block_tiles_work(cand, rays, tris, stop=None) -> tuple[float, float]:
+    """(operations, bytes) of block_tiles on these lists: the live rounds
+    before each block's ``stop`` (the tail guard's output; without it,
+    every live round, the unguarded kernel's work) and the tiles they
+    name.  With a stop, also the entry-t the guard reads (one per check:
+    c0 = GROUP + k*CHUNK up to the stop and below the list's count) and
+    the stop written."""
     dummy = tris.shape[0] - 1
-    live = int((cand != dummy).sum())                 # block-rounds
+    ran = _ran(cand, dummy, stop)
     rb = rays.shape[0] // cand.shape[0]
-    ops = live * LANES * (EDGE_OPS + rb * MT8_OPS)
+    ops = int(ran.sum()) * LANES * (EDGE_OPS + rb * MT8_OPS)
     out = rays.shape[0] * LANES * 8                   # at f32 + ar i32
-    return ops, _nbytes(cand) + _rays(rays) + _tiles(cand, dummy) + out
+    tiles = _tiles(torch.where(ran, cand, dummy), dummy)
+    nbytes = _nbytes(cand) + _rays(rays) + tiles + out
+    if stop is not None:
+        last = torch.minimum(list_counts(cand, dummy) - 1, stop)
+        checks = torch.clamp_min(torch.div(last - GROUP, CHUNK,
+                                           rounding_mode="floor") + 1, 0)
+        nbytes += int(checks.sum()) * 4 + _nbytes(stop)
+    return ops, nbytes
 
 
 def list_tiles_work(cand, rays, tris) -> tuple[float, float]:

@@ -44,10 +44,10 @@ def workload(scene) -> dict:
     perm = torch.argsort(lt._ray_sort_key(cs, o, d), stable=True)
     o, d = o[perm], d[perm]
     cand, _ctn, _of = candidate_clusters(cs, o, d, tl, LIST_MAXC)
-    candg, _ctng, _of, _cov = candidate_clusters_grouped(
+    candg, ctng, _of, _cov = candidate_clusters_grouped(
         cs, o, d, tl, SHARE_MAXC, lt.RB_SHARE)
     return dict(k2=cs.num_clusters, rays=pack_rays(o, d, tl), cand=cand,
-                candg=candg, tris=lt._tiles_with_dummy(cs))
+                candg=candg, ctng=ctng, tris=lt._tiles_with_dummy(cs))
 
 
 def per_ray_lists(work: dict, maxc: int):
@@ -78,12 +78,16 @@ def run(scene, reps: int = 5, work: dict | None = None):
           flush=True)
     for maxc in (48, 96):
         cnd = dummy_lists(work["candg"][:, :maxc], k2)
-        ms = cuda_ms(lambda: lt.block_tiles(cnd, rays, tris), reps)
+        ctn = work["ctng"][:, :maxc].contiguous()
+        ms = cuda_ms(lambda: lt.block_tiles(cnd, ctn, rays, tris), reps)
+        stop = lt.block_tiles(cnd, ctn, rays, tris)[2]
         print(f"share   rb=32 maxc={maxc:2d}: {ms:8.4f} ms "
               f"({ms * 1e6 / B:7.2f} ns/ray, "
-              f"{live_rounds_mean(cnd, k2):.2f} live rounds per block), "
-              f"{bound_note(bounds.block_tiles_work(cnd, rays, tris))}",
+              f"{live_rounds_mean(cnd, k2):.2f} live rounds per block, "
+              f"{bounds.rounds_run(cnd, tris, stop)} of "
+              f"{bounds.rounds_run(cnd, tris)} run), "
+              f"{bound_note(bounds.block_tiles_work(cnd, rays, tris, stop))}",
               flush=True)
     plain_line("share rb=32 maxc=96", lambda: lt.block_tiles_plain(
-        cnd, rays, tris))
+        cnd, ctn, rays, tris))
 

@@ -4,7 +4,13 @@ mode on CPU) and the brute-force oracle.
 Tolerances: packed winners, certificates and overflow flags identical;
 t within 1e-5, the golden-ray tolerance (tests/test_golden_rays.py:20) —
 XLA may contract the Möller–Trumbore products into FMAs where torch does
-not.  On CPU tensors every kernel wrapper runs its plain torch version."""
+not.  On CPU tensors every kernel wrapper runs its plain torch version.
+
+The block-shared kernel runs the TPU kernel's tail guard, which the JAX
+kernel in interpret mode skips: there an any-hit ray that is already
+blocked may keep a farther hit than the nearest, as on the TPU.  So with
+share=True, any-hit rays are held to what their callers read, "blocked"
+(packed >= 0) and certain (``_certain``); closest-hit rays stay exact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,14 +42,21 @@ def mesh():
         tris, order=perm, device="cpu")
 
 
-def _compare_run(jout, pout):
+def _compare_run(jout, pout, ah=None):
+    """_run's outputs equal JAX's.  ``ah``: the any-hit rays of a guarded
+    (share=True) run, held to blocked and certain only."""
     jt, jp, jr, jo = (np.asarray(x) for x in jout)
     pt, pp, pr, po = (x.numpy() for x in pout)
-    np.testing.assert_array_equal(pp, jp)
-    np.testing.assert_array_equal(pr, jr)
     assert bool(po) == bool(jo)
     hit = jp >= 0
-    np.testing.assert_allclose(pt[hit], jt[hit], rtol=T_TOL, atol=T_TOL)
+    exact = np.ones_like(hit) if ah is None else ~ah
+    if ah is not None:
+        np.testing.assert_array_equal((pp >= 0)[ah], hit[ah])
+        np.testing.assert_array_equal((pr | (pp >= 0))[ah], (jr | hit)[ah])
+    np.testing.assert_array_equal(pp[exact], jp[exact])
+    np.testing.assert_array_equal(pr[exact], jr[exact])
+    np.testing.assert_allclose(pt[hit & exact], jt[hit & exact],
+                               rtol=T_TOL, atol=T_TOL)
     assert (pt[~hit] == BIG_T).all()
     return hit
 
@@ -76,7 +89,7 @@ def test_run_matches_jax(mesh, case):
     pout = PL._run(pcs, torch.tensor(o), torch.tensor(d), torch.tensor(tl),
                    maxc, torch.tensor(ah), mask=torch.tensor(mask),
                    share=share, escalate=escalate)
-    hit = _compare_run(jout, pout)
+    hit = _compare_run(jout, pout, ah if share else None)
     assert hit.any() and not hit[~mask].any()
     if escalate:
         # the main pass alone leaves uncertified rays: escalation ran
@@ -109,10 +122,19 @@ def test_multi_query_matches_jax(mesh, share):
          torch.tensor(m2), True),
     ], share=share)
     assert bool(pof) == bool(jof)
-    for (jt, jp), (pt, pp) in zip(jres, pres):
+    (jt, jp), (pt, pp) = jres[0], pres[0]             # closest hit: exact
+    np.testing.assert_array_equal(pp.numpy(), np.asarray(jp))
+    hit = np.asarray(jp) >= 0
+    np.testing.assert_allclose(pt.numpy()[hit], np.asarray(jt)[hit],
+                               rtol=T_TOL, atol=T_TOL)
+    (jt, jp), (pt, pp) = jres[1], pres[1]             # occlusion
+    blocked = np.asarray(jp) >= 0
+    assert blocked.any() and not blocked.all()
+    np.testing.assert_array_equal(pp.numpy() >= 0, blocked)
+    if not share:                                     # no guard: exact
         np.testing.assert_array_equal(pp.numpy(), np.asarray(jp))
-        hit = np.asarray(jp) >= 0
-        np.testing.assert_allclose(pt.numpy()[hit], np.asarray(jt)[hit],
+        np.testing.assert_allclose(pt.numpy()[blocked],
+                                   np.asarray(jt)[blocked],
                                    rtol=T_TOL, atol=T_TOL)
     jt, jprim = JL.packed_to_prim(jcs, *jres[0])
     pt, pprim = PL.packed_to_prim(pcs, *pres[0])
@@ -165,21 +187,27 @@ def test_wrappers_dispatch_on_device(mesh):
     o, d = _rays(rng, 128)
     rays = torch.cat([torch.tensor(o), torch.tensor(d),
                       torch.full((128, 1), BIG_T), torch.zeros((128, 1))], 1)
+    ctn = torch.zeros((4, 16))          # entry-t 0: the guard never fires
     PL.reset_launch_counts()
-    at, ar = PL.block_tiles(cand, rays, tiles)
-    at2, ar2 = PL.block_tiles_plain(cand, rays, tiles)
+    at, ar, stop = PL.block_tiles(cand, ctn, rays, tiles)
+    at2, ar2, stop2 = PL.block_tiles_plain(cand, ctn, rays, tiles)
     assert torch.equal(at, at2) and torch.equal(ar, ar2)
+    assert torch.equal(stop, stop2) and (stop == 16).all()
     lcand = cand.repeat_interleave(32, dim=0)
     at3, ar3 = PL.list_tiles(lcand, rays, tiles)
     # per-ray lists equal to the block's list give the block answer
     assert torch.equal(at3, at) and torch.equal(ar3, ar)
     assert PL.LAUNCHES == {"block_tiles": 0, "list_tiles": 0}
     with pytest.raises(ValueError):
-        PL.block_tiles(cand, rays, tiles, impl="cuda")
+        PL.block_tiles(cand, ctn, rays, tiles, impl="cuda")
+    with pytest.raises(ValueError):
+        PL.block_tiles_cuda(cand, ctn, rays, tiles)
     with pytest.raises(ValueError):
         PL.list_tiles(lcand, rays, tiles, impl="triton")
     with pytest.raises(ValueError):
-        PL.block_tiles(cand, rays[:64], tiles)
+        PL.block_tiles(cand, ctn, rays[:64], tiles)
+    with pytest.raises(ValueError):
+        PL.block_tiles(cand, ctn[:, :8], rays, tiles)
     with pytest.raises(TypeError):
         PL.list_tiles(lcand.long(), rays, tiles)
 

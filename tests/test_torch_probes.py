@@ -309,10 +309,25 @@ def _block_pallas(cand_rows, ctn_rows, rays, tris, k2):
     return np.asarray(at), np.asarray(ar)
 
 
+def _block_vs_pallas(cand, ctn, rays, tris, k2):
+    """The guarded block kernel (plain version on CPU) against
+    _block_kernel_impl in interpret mode, which runs no guard, on each
+    list cut at the port's stop.  Returns (stop, count) per block."""
+    cnd = dummy_lists(torch.tensor(cand), k2)
+    at, ar, stop = PL.block_tiles(cnd, torch.tensor(ctn), rays, tris)
+    cut = np.where(np.arange(cand.shape[1])[None] < stop.numpy()[:, None],
+                   cand, -1)
+    want_at, want_ar = _block_pallas(cut, ctn, rays.numpy(), tris.numpy(), k2)
+    np.testing.assert_array_equal(ar.numpy(), want_ar)
+    np.testing.assert_allclose(at.numpy(), want_at, rtol=T_TOL, atol=T_TOL)
+    return stop.numpy(), PL.list_counts(cnd, k2).numpy()
+
+
 @pytest.mark.parametrize("lists", ["real", "all_full", "half"])
 def test_block_tiles_count_lists_match_pallas(wavefront, lists):
     """The block-shared kernel on real union lists and on chunk_bench_r4's
-    synthetic all-full and half-count lists."""
+    synthetic all-full and half-count lists (entry-t 0: the guard never
+    fires on them)."""
     w = wavefront
     cand = w["candg"].numpy().copy()
     ctn = w["ctng"].numpy().copy()
@@ -321,14 +336,73 @@ def test_block_tiles_count_lists_match_pallas(wavefront, lists):
         n = maxc if lists == "all_full" else maxc // 2
         cand = np.full((g, maxc), -1, np.int32)
         cand[:, :n] = np.arange(n, dtype=np.int32) % w["k2"]
-        ctn = np.full((g, maxc), BIG_T, np.float32)
-        ctn[:, :n] = 0.0
-    want_at, want_ar = _block_pallas(cand, ctn, w["rays"].numpy(),
-                                     w["tris"].numpy(), w["k2"])
-    at, ar = PL.block_tiles(dummy_lists(torch.tensor(cand), w["k2"]),
-                            w["rays"], w["tris"])
-    np.testing.assert_array_equal(ar.numpy(), want_ar)
-    np.testing.assert_allclose(at.numpy(), want_at, rtol=T_TOL, atol=T_TOL)
+        ctn = np.zeros((g, maxc), np.float32)
+    stop, _count = _block_vs_pallas(cand, ctn, w["rays"], w["tris"], w["k2"])
+    if lists != "real":
+        assert (stop == maxc).all()
+
+
+@pytest.fixture(scope="module")
+def guarded():
+    """Rays that the tail guard stops: sorted rays from outside a small
+    dragon scene aimed at its triangles, a third of them any-hit rays with
+    a t_lim past their target, and their block lists (maxc 48)."""
+    scene = procedural.dragon_scene(6_000, with_sky=False, device="cpu")
+    cs = scene.clusters
+    rng = np.random.default_rng(5)
+    n = 256
+    tris = scene.triangles.numpy()
+    target = tris[rng.integers(0, tris.shape[0], n)].mean(axis=1)
+    o = target + rng.normal(size=(n, 3)).astype(np.float32) * 0.2 + 1.0
+    d = target - o
+    dist = np.linalg.norm(d, axis=-1)
+    d = (d / dist[:, None]).astype(np.float32)
+    ah = rng.random(n) < 1 / 3
+    tl = np.where(ah, dist * 1.5, BIG_T).astype(np.float32)
+    o, d, tl = (torch.tensor(x) for x in (o, d, tl))
+    perm = torch.argsort(PL._ray_sort_key(cs, o, d), stable=True)
+    o, d, tl, ah = o[perm], d[perm], tl[perm], torch.tensor(ah)[perm]
+    cand, ctn, _, _ = PC.candidate_clusters_grouped(cs, o, d, tl, 48, 32)
+    rays = torch.cat([o, d, tl[:, None], ah[:, None].float()], dim=1)
+    return dict(k2=cs.num_clusters, rays=rays.contiguous(), cand=cand,
+                ctn=ctn, tris=PL._tiles_with_dummy(cs))
+
+
+def _winner(at, ar, tmin):
+    """The reduction tail's (lane, round) winner: smallest lane at the
+    min, then its round (lane-major pack)."""
+    return torch.where(at <= tmin[:, None], torch.arange(T) * 128 + ar,
+                       1 << 30).amin(dim=1)
+
+
+def test_block_tiles_guard_matches_pallas_on_cut_lists(guarded):
+    """The guard fires on these lists, and what the guarded kernel computes
+    is the unguarded TPU kernel's answer on each list cut at the stop."""
+    g = guarded
+    stop, count = _block_vs_pallas(g["cand"].numpy(), g["ctn"].numpy(),
+                                   g["rays"], g["tris"], g["k2"])
+    assert (stop < count).any()
+    fired = stop < count
+    assert ((stop[fired] - PL.GROUP) % PL.CHUNK == 0).all()
+    assert (stop[~fired] == g["cand"].shape[1]).all()
+    # exact: a closest-hit ray keeps its nearest t and (lane, round) winner,
+    # an any-hit ray its "blocked"; the guard never fires with an entry-t
+    # of -inf and no any-hit flag
+    cnd = dummy_lists(g["cand"], g["k2"])
+    rays = g["rays"]
+    at, ar, _ = PL.block_tiles(cnd, g["ctn"], rays, g["tris"])
+    at0, ar0, stop0 = PL.block_tiles(
+        cnd, torch.full_like(g["ctn"], -float("inf")),
+        torch.cat([rays[:, :7], torch.zeros_like(rays[:, 7:])], 1),
+        g["tris"])
+    assert (stop0 == cnd.shape[1]).all()
+    ah = rays[:, 7] > 0
+    tmin, tmin0 = at.amin(dim=1), at0.amin(dim=1)
+    assert torch.equal(tmin[~ah], tmin0[~ah])
+    assert torch.equal(_winner(at, ar, tmin)[~ah],
+                       _winner(at0, ar0, tmin0)[~ah])
+    assert torch.equal((tmin < rays[:, 6])[ah], (tmin0 < rays[:, 6])[ah])
+    assert (tmin < rays[:, 6])[ah].any()
 
 
 def test_list_tiles_plain_grouping_is_invisible(wavefront):
@@ -393,6 +467,26 @@ def test_bounds_count_live_work():
     assert nbytes == 8 * 4 + 64 * 7 * 4 + 2 * bounds.TILE_BYTES + 64 * T * 8
     ops, nbytes = bounds.list_tiles_work(cand, rays[:2], tris)
     assert ops == 3 * T * (bounds.EDGE_OPS + bounds.MT8_OPS)
+    # with the guard's stop: the live rounds before it, the tiles they
+    # name, the entry-t of each check and the stop written; stop = maxc
+    # gives the unguarded rounds
+    long = torch.full((2, 32), k2, dtype=torch.int32)
+    long[0, :30] = torch.arange(30) % k2          # count 30
+    long[1, :5] = 1                               # count 5
+    tris2 = torch.zeros((k2 + 1, 9, T))
+    rays2 = torch.zeros((64, 8))
+    full = torch.tensor([32, 32], dtype=torch.int32)
+    ops_all, by_all = bounds.block_tiles_work(long, rays2, tris2)
+    assert bounds.block_tiles_work(long, rays2, tris2, full)[0] == ops_all
+    assert bounds.rounds_run(long, tris2, full) == 35
+    per_round = T * (bounds.EDGE_OPS + 32 * bounds.MT8_OPS)
+    assert ops_all == 35 * per_round
+    stop = torch.tensor([24, 32], dtype=torch.int32)
+    ops, nbytes = bounds.block_tiles_work(long, rays2, tris2, stop)
+    assert bounds.rounds_run(long, tris2, stop) == 29
+    assert ops == 29 * per_round
+    # block 0 checks at 8 and 24 (fired), block 1 (count 5) never checks
+    assert nbytes == by_all + 2 * 4 + 2 * 4
     ms, by = bounds.bound(67e9, 0)
     assert by == "operations" and ms == pytest.approx(1.0)
     assert bounds.bound(0, 3.35e9) == (pytest.approx(1.0), "bytes")
@@ -439,14 +533,16 @@ def test_chunk_workload_small():
     w = chunk.workload("cpu", n_tris=2_000, n_rays=256)
     g = 256 // PL.RB_SHARE
     counts = {k: int((v >= 0).sum(dim=1).max())
-              for k, v in w["lists"].items()}
+              for k, (v, _t) in w["lists"].items()}
     assert counts["synthetic all-full (96 rounds)"] == chunk.MAXC
     assert counts["synthetic count=48"] == 48
     assert counts["synthetic count=24"] == 24
-    assert all(v.shape == (g, chunk.MAXC) for v in w["lists"].values())
-    at, _ar = PL.block_tiles(dummy_lists(w["lists"]["real union lists"],
-                                         w["k2"]), w["rays"], w["tris"])
-    assert (at < BIG_T).any()
+    assert all(v.shape == t.shape == (g, chunk.MAXC)
+               for v, t in w["lists"].values())
+    cand, ctn = w["lists"]["real union lists"]
+    at, _ar, stop = PL.block_tiles(dummy_lists(cand, w["k2"]), ctn,
+                                   w["rays"], w["tris"])
+    assert (at < BIG_T).any() and stop.shape == (g,)
 
 
 # ---- the entry points run on the card unless asked for the CPU --------

@@ -12,14 +12,13 @@ Phases (any failure exits non-zero):
   2. Kernels vs their plain torch versions on the card, on inputs captured
      from the main path itself: the 32768-ray primary launch and the fused
      ~98k-ray 3-query launch of the first bounce (block-shared kernel, at
-     both of its rays-per-thread variants; at/ar/stop), and the escalation
-     launches (per-ray kernel; at/ar).  They must be bit-identical, and so
-     must _run's (t, packed, resolved, overflow).  For the bounce-1 launch
-     it prints the live block-rounds and those the tail guard let run, the
-     time back to back (each variant, and the main one with the lists in
-     build order instead of longest first), the bound on the rounds run
-     beside the bound on all live rounds, and the kernel's registers,
-     local (spill) bytes and blocks per SM.  Then certified closest hits
+     at/ar/stop), and the escalation launches (per-ray kernel; at/ar).
+     They must be bit-identical, and so must _run's (t, packed,
+     resolved, overflow).  For the bounce-1 launch it prints the live
+     block-rounds and those the tail guard let run, the time back to
+     back, the bound on the rounds run beside the bound on all live
+     rounds, and the kernel's registers, local (spill) bytes and blocks
+     per SM.  Then certified closest hits
      are held against the brute-force triangle oracle on a small ray
      subset.
   3. The main path: render() of the 200k-triangle dragon + HDR sky at
@@ -27,10 +26,14 @@ Phases (any failure exits non-zero):
      tiles — warm, with the kernels' launch counters reset just before;
      then one more frame with every list-kernel launch timed (CUDA events)
      and bounded, for each kernel's time and sum of bounds per frame.
+     Every block-kernel launch of that frame where the tail guard stopped
+     a list is held bit for bit against the plain version (at least one
+     must exist).
   4. One 32768-ray tile at 8 bounces with the kernels and with the plain
      versions: the radiance must be bit-identical.
   5. The probe path: each probe kernel against its plain version at the
-     probe scripts' shapes (the per-ray kernel at 1 / 8 / 16 / 32 rays per
+     probe scripts' shapes (the block kernel on kernel_shape's maxc-96
+     grouped lists, where the guard must stop lists; the per-ray kernel at 1 / 8 / 16 / 32 rays per
      block, its lane-min form, the synthetic round in every variant and
      sub-block count, the three feature smoke kernels, also against the
      scripts' closed forms), then every probe sweep once
@@ -169,46 +172,48 @@ def live_note(cand, tris) -> str:
             f"{float(live.quantile(0.9)):.0f}, max {int(live.max())})")
 
 
+def hold_block_tiles(lt, launch, tris, label) -> tuple:
+    """The block kernel against its plain version on one launch's (cand,
+    ctn, rays): (at, ar, stop) must be bit-identical.  Returns (the plain
+    version's stop, max |dt|, lists the guard stopped before their
+    count)."""
+    import torch
+
+    cand, ctn, rays = launch
+    out = lt.block_tiles_cuda(cand, ctn, rays, tris)
+    want = lt.block_tiles_plain(cand, ctn, rays, tris)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(out, want))
+    err = max_abs_err(out[0], want[0])
+    stop = want[2]
+    early = int((stop < lt.list_counts(cand, tris.shape[0] - 1)).sum())
+    log(f"{label}: rays {rays.shape[0]}, maxc {cand.shape[1]}, (at, ar, "
+        f"stop) bit-identical={same}, the guard stopped {early} of "
+        f"{cand.shape[0]} lists early")
+    if not same:
+        raise RuntimeError(f"block_tiles disagrees with its plain version "
+                           f"at {label} (max |dt| {err})")
+    return stop, err, early
+
+
 def block_tiles_phase(lt, bounds, cuda_ms, tris, prim_launch, bounce_launch,
                       card) -> dict:
     """Phase 2 for the block kernel: bit-identity of (at, ar, stop) with
-    the plain version at both captured launches (every rays-per-thread
-    variant at the bounce-1 launch); then the bounce-1 launch's rounds,
-    times, bounds, registers and occupancy.  Returns its kernels entry."""
-    import torch
-
+    the plain version at both captured launches; then the bounce-1
+    launch's rounds, time, bounds, registers and occupancy.  Returns its
+    kernels entry."""
     err = 0.0
-    for label, (cand, ctn, rays) in (("primary", prim_launch),
-                                     ("bounce 1", bounce_launch)):
-        want = lt.block_tiles_plain(cand, ctn, rays, tris)
-        variants = lt.BLOCK_RAYS_PER_THREAD if label == "bounce 1" \
-            else lt.BLOCK_RAYS_PER_THREAD[:1]
-        for rpt in variants:
-            out = lt.block_tiles_cuda(cand, ctn, rays, tris, rpt)
-            torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(out, want))
-            err = max(err, max_abs_err(out[0], want[0]))
-            log(f"phase 2 block_tiles {label} launch, {rpt} rays per "
-                f"thread: rays {rays.shape[0]}, maxc {cand.shape[1]}, "
-                f"(at, ar, stop) bit-identical={same}")
-            if not same:
-                raise RuntimeError(f"block_tiles disagrees with its plain "
-                                   f"version (max |dt| {err})")
-        stop = want[2]          # after the loop: the bounce-1 launch's
-        fired = int((stop < lt.list_counts(cand, tris.shape[0] - 1)).sum())
+    for label, launch in (("primary", prim_launch),
+                          ("bounce 1", bounce_launch)):
+        stop, e, _early = hold_block_tiles(
+            lt, launch, tris, f"phase 2 block_tiles {label} launch")
+        err = max(err, e)
+        cand = launch[0]
         log(f"phase 2 block_tiles {label} launch: {live_note(cand, tris)}; "
             f"the guard let {bounds.rounds_run(cand, tris, stop)} of "
-            f"{bounds.rounds_run(cand, tris)} live block-rounds run "
-            f"({fired} lists stopped early)")
+            f"{bounds.rounds_run(cand, tris)} live block-rounds run")
 
-    cand, ctn, rays = bounce_launch
-    times = {rpt: cuda_ms(lambda: lt.block_tiles_cuda(cand, ctn, rays, tris,
-                                                      rpt), 20)
-             for rpt in lt.BLOCK_RAYS_PER_THREAD}
-    in_order = torch.arange(cand.shape[0], dtype=torch.int32,
-                            device=cand.device)
-    order_ms = cuda_ms(lambda: lt.block_tiles_cuda(cand, ctn, rays, tris,
-                                                   order=in_order), 20)
+    cand, ctn, rays = bounce_launch     # stop is the bounce-1 launch's
     ms = cuda_ms(lambda: lt.block_tiles(cand, ctn, rays, tris), 20)
     plain_ms = cuda_ms(lambda: lt.block_tiles_plain(cand, ctn, rays, tris), 3)
     entry = kernel_entry("block_tiles", LISTTRACE_CU, BLOCK_REPLACES, ms,
@@ -217,25 +222,54 @@ def block_tiles_phase(lt, bounds, cuda_ms, tris, prim_launch, bounce_launch,
                          bounds)
     all_ms, all_by = bounds.bound(*bounds.block_tiles_work(cand, rays, tris))
     log(f"phase 2 block_tiles bounce-1 launch: {ms:.4f} ms kernel back to "
-        f"back ({lt.BLOCK_RAYS_PER_THREAD[0]} rays per thread, lists "
-        f"longest first) vs {plain_ms:.4f} ms plain; "
-        + ", ".join(f"{rpt} rays per thread {t:.4f} ms"
-                    for rpt, t in times.items())
-        + f"; lists in build order {order_ms:.4f} ms; bound on the rounds "
-        f"run {entry['bound_ms']:.4f} ms by {entry['bound_by']} "
+        f"back vs {plain_ms:.4f} ms plain; bound on the rounds run "
+        f"{entry['bound_ms']:.4f} ms by {entry['bound_by']} "
         f"({entry['ops']:.4g} operations, {entry['bytes']:.4g} bytes), "
         f"bound on all live rounds {all_ms:.4f} ms by {all_by} ({card})")
-    for rpt in lt.BLOCK_RAYS_PER_THREAD:
-        info = lt.block_tiles_info(rpt)
-        log(f"phase 2 block_tiles {rpt} rays per thread: "
-            f"{info['registers']} registers, {info['local_bytes']} local "
-            f"(spill) bytes per thread, {info['threads']} threads per "
-            f"block, {info['blocks_per_sm']} blocks ({info['warps_per_sm']} "
-            f"warps) per SM")
-        if info["local_bytes"] and rpt == lt.BLOCK_RAYS_PER_THREAD[0]:
-            raise RuntimeError(f"block_tiles at {rpt} rays per thread "
-                               "spills to local memory")
+    info = lt.block_tiles_info()
+    log(f"phase 2 block_tiles: {info['registers']} registers, "
+        f"{info['local_bytes']} local (spill) bytes per thread, "
+        f"{info['threads']} threads per block, {info['blocks_per_sm']} "
+        f"blocks ({info['warps_per_sm']} warps) per SM")
+    if info["local_bytes"]:
+        raise RuntimeError("block_tiles spills to local memory")
     return entry
+
+
+def guard_phase(lt, bounds, timer) -> float:
+    """The tail guard in the kernel: every block_tiles launch of the timed
+    frame where the guard stopped a list is run again by the kernel and
+    by the plain version, (at, ar, stop) bit-identical, and the frame's
+    own stop must equal the plain one.  Fails if the guard stopped no
+    list in the whole frame.  Returns the max |dt|."""
+    import torch
+
+    err, held, cut, live = 0.0, 0, 0, 0
+    for name, _s, _e, args in timer.launches:
+        if name != "block_tiles":
+            continue
+        cand, ctn, rays, tris, stop = args
+        live += bounds.rounds_run(cand, tris)
+        cut += bounds.rounds_run(cand, tris) - bounds.rounds_run(cand, tris,
+                                                                 stop)
+        if not bool((stop < lt.list_counts(cand, tris.shape[0] - 1)).any()):
+            continue
+        want, e, _early = hold_block_tiles(
+            lt, (cand, ctn, rays), tris,
+            f"phase 3 guard: block_tiles launch {held + 1} of the frame "
+            "where it fired")
+        if not torch.equal(stop, want):
+            raise RuntimeError("the frame's block_tiles stop differs from "
+                               "the plain version's")
+        err = max(err, e)
+        held += 1
+    log(f"phase 3 guard: it fired in {held} block_tiles launches of the "
+        f"frame and cut {cut} of {live} live block-rounds; each of those "
+        f"launches bit-identical to the plain version")
+    if not held:
+        raise RuntimeError("the tail guard stopped no list in the frame, so "
+                           "its kernel path went unchecked")
+    return err
 
 
 def kernel_entry(name, source, replaces, ms, plain_ms, work, err, bounds):
@@ -453,6 +487,9 @@ def main() -> int:
             log(f"phase 3 per frame {name}: {n} launches, {ms:.4f} ms kernel "
                 f"(CUDA events around each launch), {b_ms:.4f} ms sum of "
                 f"per-launch bounds, {ms - b_ms:.4f} ms above them ({card})")
+        block = kernels[0]
+        block["max_abs_err"] = max(block["max_abs_err"],
+                                   guard_phase(lt, bounds, timer))
 
         # ---- phase 4: one 8-bounce tile, kernels vs plain versions ----
         rad_k, aux_k = pt.render_rays(scene, cam, px0, py0, W, H, tile_key,
@@ -503,6 +540,16 @@ def main() -> int:
         # on kernel_shape's 98,304-ray wavefront (maxc 32)
         ks = kernel_shape.workload(scene)
         rays5, tris5 = ks["rays"], ks["tris"]
+        # the block kernel on the grouped lists at maxc 96, where the
+        # guard stops lists of the sorted wavefront
+        _stop, err, early = hold_block_tiles(
+            lt, (*kernel_shape.block_lists(ks, kernel_shape.SHARE_MAXC),
+                 rays5), tris5,
+            "phase 5 block_tiles on kernel_shape's grouped lists")
+        if not early:
+            raise RuntimeError("the tail guard stopped no list of "
+                               "kernel_shape's grouped lists")
+        block["max_abs_err"] = max(block["max_abs_err"], err)
         cnd = kernel_shape.per_ray_lists(ks, 32)
         at_p, ar_p = lt.list_tiles_plain(cnd, rays5, tris5)
         for k in lt.LIST_RAYS_PER_BLOCK:

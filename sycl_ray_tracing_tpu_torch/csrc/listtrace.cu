@@ -46,6 +46,8 @@ constexpr int kChunk = 16;       // rounds between guards (CHUNK)
 constexpr int kTileFloats = 9 * kLanes;
 constexpr int kTilePieces = kTileFloats / 4;  // 16-byte cp.async pieces
 constexpr int kStages = 3;       // tiles in the shared-memory ring
+constexpr int kRpt = 8;          // rays per thread of the block kernel
+constexpr int kBlockThreads = kLanes * kRbShare / kRpt;  // 512
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -63,23 +65,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// Threads per CUDA block for kRpt rays per thread, and the blocks per SM
-// asked of ptxas (its register cap is 65536 / (threads x blocks)).
-template <int kRpt>
-struct BlockShape;
-template <>
-struct BlockShape<8> {
-  static constexpr int kThreads = 512, kMinBlocks = 1;
-};
-template <>
-struct BlockShape<16> {
-  static constexpr int kThreads = 256, kMinBlocks = 2;
-};
-
 // Replaces _block_kernel_impl (sycl_ray_tracing_tpu/ops/pallas/
 // listtrace.py:298-352) and its _tail_guard (:197-242): one CUDA block
-// per list of 32 sorted rays; thread = (triangle lane, group of kRpt
-// rays), so a block has 128 x 32/kRpt threads.
+// per list of 32 sorted rays; thread = (triangle lane, group of kRpt = 8
+// rays), so a block has 512 threads.
 //
 // What bounds it on an H100: FP32 issue.  The 200k-triangle scene's tiles
 // (7.4 MB) stay in the 50 MB L2, and one round reads a 4.6 KB tile for
@@ -87,23 +76,24 @@ struct BlockShape<16> {
 // -fmad=false each operation takes an issue slot, so the kernel can reach
 // about half of the 67 TFLOP/s peak.  What the design does about the four
 // things that held the first version back:
-//  1. Registers.  A thread carries only its kRpt rays' (at, ar), not all
+//  1. Registers.  A thread carries only its 8 rays' (at, ar), not all
 //     32, and reads each ray's fields as two shared-memory broadcasts
-//     (float4) per round: no spill, and 16 or more warps per SM
-//     (BlockShape).  A long list gets 4 (kRpt 8) or 2 (kRpt 16) times the
-//     threads of the one-thread-per-lane version on its rounds.
+//     (float4) per round: no spill, 16 warps per SM.  A long list gets 4
+//     times the threads of the one-thread-per-lane version on its rounds.
+//     16 rays per thread (256 threads, 2 blocks per SM) measured slower
+//     (PERF.md).
 //  2. Tile loads.  Warp 0 first compacts the list's live (non-dummy)
 //     slots; then tiles go through a 3-stage shared-memory ring filled
 //     with cp.async, 16 B a thread, one live round ahead of the one being
 //     computed, so one __syncthreads a round suffices.  Every ray group
 //     reads its lane's 9 floats from the ring (consecutive lanes: no bank
 //     conflicts) and forms the two edges itself.
-//  3. Imbalance.  The grid takes lists in the order `order` gives:
-//     longest first (list_count_kernel and longest_first_kernel, a
-//     counting sort on the card), so the lists of 128 rounds start in the
-//     first wave instead of setting the launch's length in the last, and
-//     the short ones fill in behind them.  One block of 16 warps per SM
-//     (kRpt 8) measured faster than two: a long list then has its SM to
+//  3. Imbalance.  The grid takes lists longest first (list_count_kernel
+//     and longest_first_kernel, a counting sort on the card), so the
+//     lists of 128 rounds start in the first wave instead of setting the
+//     launch's length in the last, and the short ones fill in behind
+//     them.  ptxas may use 66 registers, so
+//     one block of 16 warps runs per SM and a long list has its SM to
 //     itself.  Outputs are written in place, so the order changes
 //     nothing.
 //  4. The tail guard of the TPU kernel.  Rounds 0..GROUP-1 always run;
@@ -115,9 +105,7 @@ struct BlockShape<16> {
 //     later round can improve a closest-hit ray that is not useful.  The
 //     TPU checked once, at GROUP (each check serialised its pipeline); here
 //     a check is one block reduction, so it is made at every chunk.
-template <int kRpt>
-__global__ void __launch_bounds__(BlockShape<kRpt>::kThreads,
-                                  BlockShape<kRpt>::kMinBlocks)
+__global__ void __launch_bounds__(kBlockThreads, 1)
 block_tiles_kernel(const int32_t* __restrict__ cand,
                    const float* __restrict__ ctn,
                    const float* __restrict__ rays,
@@ -125,7 +113,6 @@ block_tiles_kernel(const int32_t* __restrict__ cand,
                    const int32_t* __restrict__ order,
                    float* __restrict__ at_out, int32_t* __restrict__ ar_out,
                    int32_t* __restrict__ stop_out, int maxc, int dummy) {
-  constexpr int kThreads = BlockShape<kRpt>::kThreads;
   constexpr int kLaneWarps = kLanes / 32;
   __shared__ __align__(16) float stile[kStages][kTileFloats];
   __shared__ __align__(16) float sray[kRbShare][8];
@@ -140,9 +127,9 @@ block_tiles_kernel(const int32_t* __restrict__ cand,
   const int lane = tid % kLanes;
   const int ray0 = (tid / kLanes) * kRpt;
   const int wlane = tid & 31;
-  for (int i = tid; i < kRbShare * 8; i += kThreads)
+  for (int i = tid; i < kRbShare * 8; i += kBlockThreads)
     sray[i / 8][i % 8] = rays[(size_t)b * kRbShare * 8 + i];
-  for (int i = tid; i < maxc; i += kThreads)
+  for (int i = tid; i < maxc; i += kBlockThreads)
     sctn[i] = ctn[(size_t)b * maxc + i];
   if (tid < 32) {  // warp 0 compacts the live slots, in round order
     int n = 0;
@@ -172,7 +159,7 @@ block_tiles_kernel(const int32_t* __restrict__ cand,
   int stop = maxc;
   auto fetch = [&](int k, int stage) {
     const float* src = tris + (size_t)slive[k] * kTileFloats;
-    for (int i = tid; i < kTilePieces; i += kThreads)
+    for (int i = tid; i < kTilePieces; i += kBlockThreads)
       cp_async16(&stile[stage][4 * i], src + 4 * i);
   };
   if (nlive > 0) fetch(0, 0);
@@ -273,36 +260,6 @@ longest_first_kernel(const int32_t* __restrict__ count,
   __syncthreads();
   for (int b = threadIdx.x; b < nblocks; b += blockDim.x)
     order[atomicAdd(&next[count[b]], 1)] = b;
-}
-
-template <int kRpt>
-void launch_block(const void* cand, const void* ctn, const void* rays,
-                  const void* tris, const void* order, void* at, void* ar,
-                  void* stop, int nblocks, int maxc, int dummy,
-                  cudaStream_t stream) {
-  block_tiles_kernel<kRpt><<<nblocks, BlockShape<kRpt>::kThreads, 0,
-                             stream>>>(
-      (const int32_t*)cand, (const float*)ctn, (const float*)rays,
-      (const float*)tris, (const int32_t*)order, (float*)at, (int32_t*)ar,
-      (int32_t*)stop, maxc, dummy);
-}
-
-// info[0..3] = registers per thread, local (spill) bytes per thread,
-// resident blocks per SM, threads per block.
-template <int kRpt>
-int block_info(int* info) {
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, block_tiles_kernel<kRpt>);
-  if (e != cudaSuccess) return (int)e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, block_tiles_kernel<kRpt>, BlockShape<kRpt>::kThreads, 0);
-  if (e != cudaSuccess) return (int)e;
-  info[0] = a.numRegs;
-  info[1] = (int)a.localSizeBytes;
-  info[2] = blocks;
-  info[3] = BlockShape<kRpt>::kThreads;
-  return 0;
 }
 
 // Replaces _list_kernel_impl (listtrace.py:245-295): one CUDA block per
@@ -413,54 +370,48 @@ extern "C" {
 // Each launching entry point launches on the caller's stream and returns
 // cudaGetLastError() (0 on success); it never synchronises.
 
-// block_tiles with rays_per_thread in {8, 16}.  `order` lists the blocks
-// in launch order (a permutation of 0..nblocks-1); if it is NULL, the
-// lists go longest first, sorted on the card in `scratch` (i32
-// [2 * nblocks + maxc + 1]).
+// block_tiles, the lists longest first: a memset and two small kernels
+// sort them on the card into `scratch` (i32 [2 * nblocks + maxc + 1]),
+// then the block kernel runs in that order.
 int srt_block_tiles(const void* cand, const void* ctn, const void* rays,
-                    const void* tris, const void* order, void* scratch,
-                    void* at, void* ar, void* stop, int nblocks, int maxc,
-                    int dummy, int rays_per_thread, void* stream) {
+                    const void* tris, void* scratch, void* at, void* ar,
+                    void* stop, int nblocks, int maxc, int dummy,
+                    void* stream) {
   if (maxc < 1 || maxc > kMaxc) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (nblocks > 0 && order == nullptr) {
+  if (nblocks > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
     int32_t* count = (int32_t*)scratch;
-    int32_t* sorted = count + nblocks;
-    int32_t* hist = sorted + nblocks;
+    int32_t* order = count + nblocks;
+    int32_t* hist = order + nblocks;
     cudaError_t e = cudaMemsetAsync(hist, 0, (maxc + 1) * sizeof(int32_t), s);
     if (e != cudaSuccess) return (int)e;
     list_count_kernel<<<(nblocks + 7) / 8, 256, 0, s>>>(
         (const int32_t*)cand, count, hist, nblocks, maxc, dummy);
-    longest_first_kernel<<<1, 1024, 0, s>>>(count, hist, sorted, nblocks,
+    longest_first_kernel<<<1, 1024, 0, s>>>(count, hist, order, nblocks,
                                            maxc);
-    order = sorted;
-  }
-  if (nblocks > 0) {
-    switch (rays_per_thread) {
-      case 8:
-        launch_block<8>(cand, ctn, rays, tris, order, at, ar, stop, nblocks,
-                        maxc, dummy, s);
-        break;
-      case 16:
-        launch_block<16>(cand, ctn, rays, tris, order, at, ar, stop,
-                         nblocks, maxc, dummy, s);
-        break;
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
+    block_tiles_kernel<<<nblocks, kBlockThreads, 0, s>>>(
+        (const int32_t*)cand, (const float*)ctn, (const float*)rays,
+        (const float*)tris, order, (float*)at, (int32_t*)ar, (int32_t*)stop,
+        maxc, dummy);
   }
   return (int)cudaGetLastError();
 }
 
-int srt_block_tiles_info(int rays_per_thread, int* info) {
-  switch (rays_per_thread) {
-    case 8:
-      return block_info<8>(info);
-    case 16:
-      return block_info<16>(info);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+// info[0..3] = the block kernel's registers per thread, local (spill)
+// bytes per thread, resident blocks per SM, threads per block.
+int srt_block_tiles_info(int* info) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, block_tiles_kernel);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, block_tiles_kernel, kBlockThreads, 0);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = a.numRegs;
+  info[1] = (int)a.localSizeBytes;
+  info[2] = blocks;
+  info[3] = kBlockThreads;
+  return 0;
 }
 
 int srt_list_tiles(const void* cand, const void* rays, const void* tris,

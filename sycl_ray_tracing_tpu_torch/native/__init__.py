@@ -2,9 +2,12 @@
 sycl_ray_tracing_tpu/native/__init__.py:21-101).
 
 The C++ source is this package's own ``csrc/bvh_builder.cpp``, a copy of
-the JAX package's ``native/bvh_builder.cpp`` kept unchanged, so both
-packages build the same cluster order.  At first use it is compiled with
-g++ into this package's ``build/`` directory (which .gitignore lists).  A build failure
+the JAX package's ``native/bvh_builder.cpp`` kept unchanged.  At first
+use it is compiled with g++ (CXXFLAGS: no FMA contraction) into this
+package's ``build/`` directory (which .gitignore lists).  Built so, both
+sources give the same cluster order; the JAX package's Makefile builds
+with ``-march=native``, whose FMA contraction can change the SAH splits
+on a host with FMA, so its order may differ from this one.  A build failure
 raises: the cluster build never falls back to Morton order unless the
 caller asks for ``order="morton"``.
 """

@@ -63,7 +63,6 @@ CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 CSRC = CSRC_DIR / "listtrace.cu"
 HEADERS = [CSRC_DIR / "mt8.cuh"]
 LIST_RAYS_PER_BLOCK = (1, 8, 16, 32)
-BLOCK_RAYS_PER_THREAD = (8, 16)  # block_tiles variants, the first the main
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -97,7 +96,7 @@ def load_cuda_library() -> ctypes.CDLL:
         path = build_shared_library([CSRC], "liblisttrace", [nvcc_path()],
                                     NVCC_FLAGS, HEADERS)
         lib = ctypes.CDLL(str(path))
-        for name, nptr, nint in (("srt_block_tiles", 9, 4),
+        for name, nptr, nint in (("srt_block_tiles", 8, 3),
                                  ("srt_list_tiles", 5, 3),
                                  ("srt_list_tiles_rays", 5, 4)):
             fn = getattr(lib, name)
@@ -105,7 +104,7 @@ def load_cuda_library() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * nint + [
                 ctypes.c_void_p]
         lib.srt_block_tiles_info.restype = ctypes.c_int
-        lib.srt_block_tiles_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.srt_block_tiles_info.argtypes = [ctypes.c_void_p]
         _cuda_lib = lib
     return _cuda_lib
 
@@ -270,19 +269,11 @@ def block_tiles(cand, ctn, rays, tris, impl=None):
     return block_tiles_cuda(cand, ctn, rays, tris)
 
 
-def block_tiles_cuda(cand, ctn, rays, tris,
-                     rays_per_thread: int = BLOCK_RAYS_PER_THREAD[0],
-                     order=None):
-    """Launch the block kernel at ``rays_per_thread`` (8 or 16; the main
-    path uses the first of BLOCK_RAYS_PER_THREAD), its grid taking the
-    lists in ``order`` (i32 [nb], a permutation; the main path's None:
-    longest first, sorted on the card).  Arguments as block_tiles,
-    already checked."""
+def block_tiles_cuda(cand, ctn, rays, tris):
+    """Launch the block kernel, its grid taking the lists longest first
+    (sorted on the card).  Arguments as block_tiles, already checked."""
     if not cand.is_cuda:
         raise ValueError("block_tiles: the CUDA kernel needs CUDA tensors")
-    if rays_per_thread not in BLOCK_RAYS_PER_THREAD:
-        raise ValueError(f"rays_per_thread must be one of "
-                         f"{BLOCK_RAYS_PER_THREAD}, got {rays_per_thread}")
     if tris.data_ptr() % 16:
         raise ValueError("tris must be 16-byte aligned (cp.async)")
     lib = load_cuda_library()
@@ -294,30 +285,24 @@ def block_tiles_cuda(cand, ctn, rays, tris,
     stop = torch.empty((nb,), dtype=torch.int32, device=cand.device)
     if nb == 0:
         return at, ar, stop
-    if order is None:
-        scratch = torch.empty((2 * nb + maxc + 1,), dtype=torch.int32,
-                              device=cand.device)
-        order_p, scratch_p = None, scratch.data_ptr()
-    elif order.dtype != torch.int32 or order.shape != (nb,) \
-            or order.device != cand.device:
-        raise ValueError("order must be int32 [nb] on cand's device")
-    else:
-        order_p, scratch_p = order.data_ptr(), None
+    # the per-list counts, the launch order and the count histogram
+    scratch = torch.empty((2 * nb + maxc + 1,), dtype=torch.int32,
+                          device=cand.device)
     rc = lib.srt_block_tiles(
         cand.data_ptr(), ctn.data_ptr(), rays.data_ptr(), tris.data_ptr(),
-        order_p, scratch_p, at.data_ptr(), ar.data_ptr(), stop.data_ptr(),
-        nb, maxc, dummy, rays_per_thread, _stream(cand))
+        scratch.data_ptr(), at.data_ptr(), ar.data_ptr(), stop.data_ptr(),
+        nb, maxc, dummy, _stream(cand))
     if rc != 0:
         raise RuntimeError(f"block_tiles launch failed: CUDA error {rc}")
     LAUNCHES["block_tiles"] += 1
     return at, ar, stop
 
 
-def block_tiles_info(rays_per_thread: int = BLOCK_RAYS_PER_THREAD[0]) -> dict:
+def block_tiles_info() -> dict:
     """The built block kernel's registers and local (spill) bytes per
     thread, threads per block and resident blocks and warps per SM."""
     info = (ctypes.c_int * 4)()
-    rc = load_cuda_library().srt_block_tiles_info(rays_per_thread, info)
+    rc = load_cuda_library().srt_block_tiles_info(info)
     if rc != 0:
         raise RuntimeError(f"block_tiles_info failed: CUDA error {rc}")
     regs, local, blocks, threads = info

@@ -54,6 +54,12 @@ def per_ray_lists(work: dict, maxc: int):
     return dummy_lists(work["cand"][:, :maxc], work["k2"])
 
 
+def block_lists(work: dict, maxc: int):
+    """The block lists cut at ``maxc`` and their entry-t: (cand, ctn)."""
+    return (dummy_lists(work["candg"][:, :maxc], work["k2"]),
+            work["ctng"][:, :maxc].contiguous())
+
+
 def run(scene, reps: int = 5, work: dict | None = None):
     work = work or workload(scene)
     rays, tris, k2 = work["rays"], work["tris"], work["k2"]
@@ -77,8 +83,7 @@ def run(scene, reps: int = 5, work: dict | None = None):
           f"{bound_note(bounds.list_tiles_min_work(cnd, rays, tris))}",
           flush=True)
     for maxc in (48, 96):
-        cnd = dummy_lists(work["candg"][:, :maxc], k2)
-        ctn = work["ctng"][:, :maxc].contiguous()
+        cnd, ctn = block_lists(work, maxc)
         ms = cuda_ms(lambda: lt.block_tiles(cnd, ctn, rays, tris), reps)
         stop = lt.block_tiles(cnd, ctn, rays, tris)[2]
         print(f"share   rb=32 maxc={maxc:2d}: {ms:8.4f} ms "

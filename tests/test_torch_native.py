@@ -22,15 +22,19 @@ JAX_DIR = REPO / "sycl_ray_tracing_tpu"
 def test_native_source_inside_the_port():
     src = native.SOURCE.resolve()
     assert src.is_relative_to(PORT_DIR.resolve())
-    # a copy, kept unchanged: both packages build the same cluster order
+    # a copy, kept unchanged
     assert src.read_bytes() == (JAX_DIR / "native" / "bvh_builder.cpp"
                                 ).read_bytes()
 
 
 def test_sah_order_matches_jax(tmp_path, monkeypatch):
     """The port's SAH order equals the JAX package's, each built from its
-    own package's source (the JAX side into a temporary directory, with
-    the port's flags: no FMA contraction on either side)."""
+    own package's source.  Both are built with the port's flags (the JAX
+    side into a temporary directory), so this compares the same source
+    under the same flags and checks the Python glue around it.  The JAX
+    Makefile's ``-march=native`` lets g++ contract FMAs, which can change
+    the SAH splits: built that way on a host with FMA, the JAX order may
+    differ from the port's."""
     lib = tmp_path / "libsrt_native.so"
     srcs = [str(JAX_DIR / "native" / f) for f in ("bvh_builder.cpp",
                                                   "obj_parser.cpp")]

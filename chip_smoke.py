@@ -11,34 +11,38 @@ Phases (any failure exits non-zero):
      native SAH builder).
   2. Kernels vs their plain torch versions on the card, on inputs captured
      from the main path itself: the 32768-ray primary launch and the fused
-     ~98k-ray 3-query launch of the first bounce (block-shared kernel, at
-     at/ar/stop), and the escalation launches (per-ray kernel; at/ar).
-     They must be bit-identical, and so must _run's (t, packed,
-     resolved, overflow).  For the bounce-1 launch it prints the live
-     block-rounds and those the tail guard let run, the time back to
+     ~98k-ray 3-query launch of the first bounce (block-shared kernel),
+     and the largest escalation launch (per-ray kernel): (at, ar, stop)
+     must be bit-identical, and so must _run's (t, packed, resolved,
+     overflow).  For the bounce-1 and the escalation launch it prints the
+     live list-rounds and those the tail guard let run, the time back to
      back, the bound on the rounds run beside the bound on all live
      rounds, and the kernel's registers, local (spill) bytes and blocks
-     per SM.  Then certified closest hits
-     are held against the brute-force triangle oracle on a small ray
+     per SM (it fails if a kernel spills); for the escalation launch also
+     the time of every rays-per-block instance.  Then certified closest
+     hits are held against the brute-force triangle oracle on a small ray
      subset.
   3. The main path: render() of the 200k-triangle dragon + HDR sky at
      512x512, 1 spp, 8 bounces, list tracer, shared estimator, 32768-ray
      tiles — warm, with the kernels' launch counters reset just before;
      then one more frame with every list-kernel launch timed (CUDA events)
-     and bounded, for each kernel's time and sum of bounds per frame.
-     Every block-kernel launch of that frame where the tail guard stopped
-     a list is held bit for bit against the plain version (at least one
-     must exist).
+     and bounded, for each kernel's time and sum of bounds per frame, and
+     one more under torch.profiler, for each list kernel's device time
+     per frame beside its event time (probes/frame.py).  Every launch of
+     the timed frame where the tail guard stopped a list is held bit for
+     bit against the plain version (at least one block-kernel launch must
+     exist), and the count of such launches is printed per kernel.
   4. One 32768-ray tile at 8 bounces with the kernels and with the plain
      versions: the radiance must be bit-identical.
   5. The probe path: each probe kernel against its plain version at the
      probe scripts' shapes (the block kernel on kernel_shape's maxc-96
-     grouped lists, where the guard must stop lists; the per-ray kernel at 1 / 8 / 16 / 32 rays per
-     block, its lane-min form, the synthetic round in every variant and
-     sub-block count, the three feature smoke kernels, also against the
-     scripts' closed forms), then every probe sweep once
-     (python -m sycl_ray_tracing_tpu_torch.probes), with the probe
-     kernels' launch counters reset just before.
+     grouped lists and the per-ray kernel at 1 / 8 / 16 / 32 rays per
+     block on its maxc-32 per-ray lists, (at, ar, stop) each, where the
+     guard must stop lists; the unguarded lane-min form, the synthetic
+     round in every variant and sub-block count, the three feature smoke
+     kernels, also against the scripts' closed forms), then every probe
+     sweep once (python -m sycl_ray_tracing_tpu_torch.probes), with the
+     probe kernels' launch counters reset just before.
 
 The second-to-last lines are the card line and one JSON object describing
 each kernel (time, plain version's time, launches, and the bound: the
@@ -87,7 +91,7 @@ class Capture:
 
         def tiles_hook(name):
             def hook(*args, impl=None):
-                # (cand, ctn, rays) or (cand, rays); tris is the scene's
+                # (cand, ctn, rays); tris is the scene's
                 self.tiles[name].append(tuple(a.clone() for a in args[:-1]))
                 return self._orig[name](*args, impl=impl)
             return hook
@@ -111,8 +115,8 @@ class Capture:
 class LaunchTimer:
     """Times every list-kernel launch of a render with CUDA events around
     the wrapper call (so an idle card's wait for the host's launch path
-    is included) and keeps its inputs (and the block kernel's stop), for
-    its bound."""
+    is included) and with the host clock around the same call, and keeps
+    its inputs and stop, for its bound."""
 
     def __init__(self, lt):
         self.lt = lt
@@ -127,10 +131,13 @@ class LaunchTimer:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
+                t0 = time.perf_counter()
                 out = self._orig[name](*args, **kw)
+                host = time.perf_counter() - t0
                 end.record()
-                extra = out[2:]                     # block_tiles: (stop,)
-                self.launches.append((name, start, end, args + extra))
+                # (cand, ctn, rays, tris, stop)
+                self.launches.append((name, start, end, host,
+                                      args + out[2:]))
                 return out
             return timed
 
@@ -143,17 +150,21 @@ class LaunchTimer:
         for name, fn in self._orig.items():
             setattr(self.lt, name, fn)
 
-    def per_kernel(self, works, bounds) -> dict:
-        """{name: (launches, kernel ms, sum of per-launch bound ms)};
-        works[name] maps a launch's arguments (and stop) to its work."""
+    def per_kernel(self, bounds) -> dict:
+        """{name: (launches, kernel ms, host ms in the wrapper, sum of
+        per-launch bound ms)}, each launch bounded on the rounds its guard
+        ran."""
         import torch
 
         torch.cuda.synchronize()
         out = {}
-        for name, start, end, args in self.launches:
-            n, ms, bms = out.get(name, (0, 0.0, 0.0))
-            b_ms, _by = bounds.bound(*works[name](*args))
-            out[name] = (n + 1, ms + start.elapsed_time(end), bms + b_ms)
+        for name, start, end, host, args in self.launches:
+            cand, _ctn, rays, tris, stop = args
+            n, ms, h_ms, bms = out.get(name, (0, 0.0, 0.0, 0.0))
+            b_ms, _by = bounds.bound(*getattr(bounds, f"{name}_work")(
+                cand, rays, tris, stop))
+            out[name] = (n + 1, ms + start.elapsed_time(end),
+                         h_ms + host * 1e3, bms + b_ms)
         return out
 
 
@@ -172,16 +183,16 @@ def live_note(cand, tris) -> str:
             f"{float(live.quantile(0.9)):.0f}, max {int(live.max())})")
 
 
-def hold_block_tiles(lt, launch, tris, label) -> tuple:
-    """The block kernel against its plain version on one launch's (cand,
-    ctn, rays): (at, ar, stop) must be bit-identical.  Returns (the plain
-    version's stop, max |dt|, lists the guard stopped before their
-    count)."""
+def hold_tiles(lt, name, launch, tris, label, **kw) -> tuple:
+    """A list kernel (block_tiles or list_tiles) against its plain version
+    on one launch's (cand, ctn, rays): (at, ar, stop) must be
+    bit-identical.  Returns (the plain version's stop, max |dt|, lists the
+    guard stopped before their count)."""
     import torch
 
     cand, ctn, rays = launch
-    out = lt.block_tiles_cuda(cand, ctn, rays, tris)
-    want = lt.block_tiles_plain(cand, ctn, rays, tris)
+    out = getattr(lt, f"{name}_cuda")(cand, ctn, rays, tris, **kw)
+    want = getattr(lt, f"{name}_plain")(cand, ctn, rays, tris)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(out, want))
     err = max_abs_err(out[0], want[0])
@@ -191,62 +202,106 @@ def hold_block_tiles(lt, launch, tris, label) -> tuple:
         f"stop) bit-identical={same}, the guard stopped {early} of "
         f"{cand.shape[0]} lists early")
     if not same:
-        raise RuntimeError(f"block_tiles disagrees with its plain version "
-                           f"at {label} (max |dt| {err})")
+        raise RuntimeError(f"{name} disagrees with its plain version at "
+                           f"{label} (max |dt| {err})")
     return stop, err, early
 
 
-def block_tiles_phase(lt, bounds, cuda_ms, tris, prim_launch, bounce_launch,
-                      card) -> dict:
-    """Phase 2 for the block kernel: bit-identity of (at, ar, stop) with
-    the plain version at both captured launches; then the bounce-1
-    launch's rounds, time, bounds, registers and occupancy.  Returns its
-    kernels entry."""
+def check_info(lt, name, label, **kw):
+    """Print a built list kernel's registers, spill and occupancy; fail if
+    it spills."""
+    info = getattr(lt, f"{name}_info")(**kw)
+    log(f"{label}: {info['registers']} registers, {info['local_bytes']} "
+        f"local (spill) bytes per thread, {info['threads']} threads and "
+        f"{info['shared_bytes']} shared bytes per block, "
+        f"{info['blocks_per_sm']} blocks ({info['warps_per_sm']} warps) "
+        f"per SM")
+    if info["local_bytes"]:
+        raise RuntimeError(f"{label} spills to local memory")
+
+
+def tiles_phase(lt, name, bounds, cuda_ms, tris, held, timed, replaces,
+                card) -> dict:
+    """Phase 2 for a list kernel: bit-identity of (at, ar, stop) with the
+    plain version at each of ``held`` ((label, launch) pairs); then the
+    ``timed`` launch's rounds, time, bounds, registers and occupancy.
+    Returns its kernels entry."""
     err = 0.0
-    for label, launch in (("primary", prim_launch),
-                          ("bounce 1", bounce_launch)):
-        stop, e, _early = hold_block_tiles(
-            lt, launch, tris, f"phase 2 block_tiles {label} launch")
+    for label, launch in held:
+        stop, e, _early = hold_tiles(lt, name, launch, tris,
+                                     f"phase 2 {name} {label} launch")
         err = max(err, e)
         cand = launch[0]
-        log(f"phase 2 block_tiles {label} launch: {live_note(cand, tris)}; "
+        log(f"phase 2 {name} {label} launch: {live_note(cand, tris)}; "
             f"the guard let {bounds.rounds_run(cand, tris, stop)} of "
-            f"{bounds.rounds_run(cand, tris)} live block-rounds run")
+            f"{bounds.rounds_run(cand, tris)} live list-rounds run")
+        if launch is timed:
+            timed_stop = stop
 
-    cand, ctn, rays = bounce_launch     # stop is the bounce-1 launch's
-    ms = cuda_ms(lambda: lt.block_tiles(cand, ctn, rays, tris), 20)
-    plain_ms = cuda_ms(lambda: lt.block_tiles_plain(cand, ctn, rays, tris), 3)
-    entry = kernel_entry("block_tiles", LISTTRACE_CU, BLOCK_REPLACES, ms,
-                         plain_ms,
-                         bounds.block_tiles_work(cand, rays, tris, stop), err,
-                         bounds)
-    all_ms, all_by = bounds.bound(*bounds.block_tiles_work(cand, rays, tris))
-    log(f"phase 2 block_tiles bounce-1 launch: {ms:.4f} ms kernel back to "
-        f"back vs {plain_ms:.4f} ms plain; bound on the rounds run "
+    from sycl_ray_tracing_tpu_torch.probes import frame
+
+    cand, ctn, rays = timed
+    ms = cuda_ms(lambda: getattr(lt, name)(cand, ctn, rays, tris), 20)
+    dev_ms = frame.kernel_ms(lambda: getattr(lt, name)(cand, ctn, rays, tris),
+                             f"{name}_kernel")
+    plain_ms = cuda_ms(lambda: getattr(lt, f"{name}_plain")(
+        cand, ctn, rays, tris), 3)
+    work = getattr(bounds, f"{name}_work")
+    entry = kernel_entry(name, LISTTRACE_CU, replaces, ms, plain_ms,
+                         work(cand, rays, tris, timed_stop), err, bounds)
+    all_ms, all_by = bounds.bound(*work(cand, rays, tris))
+    log(f"phase 2 {name} timed launch: {ms:.4f} ms kernel back to back "
+        f"(CUDA events), {dev_ms:.4f} ms device time per launch "
+        f"(profiler), vs {plain_ms:.4f} ms plain; bound on the rounds run "
         f"{entry['bound_ms']:.4f} ms by {entry['bound_by']} "
         f"({entry['ops']:.4g} operations, {entry['bytes']:.4g} bytes), "
         f"bound on all live rounds {all_ms:.4f} ms by {all_by} ({card})")
-    info = lt.block_tiles_info()
-    log(f"phase 2 block_tiles: {info['registers']} registers, "
-        f"{info['local_bytes']} local (spill) bytes per thread, "
-        f"{info['threads']} threads per block, {info['blocks_per_sm']} "
-        f"blocks ({info['warps_per_sm']} warps) per SM")
-    if info["local_bytes"]:
-        raise RuntimeError("block_tiles spills to local memory")
+    check_info(lt, name, f"phase 2 {name}")
     return entry
 
 
-def guard_phase(lt, bounds, timer) -> float:
-    """The tail guard in the kernel: every block_tiles launch of the timed
+def host_path(lt, launch, tris, card):
+    """Host microseconds per call of list_tiles at one launch, and of its
+    parts: the argument checks, the output allocation, and the kernel
+    wrapper without the checks (allocation, ctypes launch, counter).  No
+    synchronise between calls: the card runs each launch faster than the
+    host issues the next."""
+    import torch
+
+    cand, ctn, rays = launch
+
+    def us(fn, n=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return t
+
+    total = us(lambda: lt.list_tiles(cand, ctn, rays, tris))
+    checks = us(lambda: lt._check_tile_args(cand, rays, tris, cand.shape[0],
+                                            ctn))
+    alloc = us(lambda: lt._list_outputs(cand.shape[0], cand.device))
+    cuda = us(lambda: lt.list_tiles_cuda(cand, ctn, rays, tris))
+    log(f"phase 2 list_tiles host path at the largest escalation launch: "
+        f"{total:.1f} us per call of the wrapper (host clock), of which "
+        f"argument checks {checks:.1f} us; list_tiles_cuda {cuda:.1f} us, "
+        f"of which the three output allocations {alloc:.1f} us ({card})")
+
+
+def guard_phase(lt, bounds, timer, name) -> tuple:
+    """The tail guard in the kernel: every launch of ``name`` in the timed
     frame where the guard stopped a list is run again by the kernel and
     by the plain version, (at, ar, stop) bit-identical, and the frame's
-    own stop must equal the plain one.  Fails if the guard stopped no
-    list in the whole frame.  Returns the max |dt|."""
+    own stop must equal the plain one.  Returns (max |dt|, launches
+    held)."""
     import torch
 
     err, held, cut, live = 0.0, 0, 0, 0
-    for name, _s, _e, args in timer.launches:
-        if name != "block_tiles":
+    for launch_name, _s, _e, _host, args in timer.launches:
+        if launch_name != name:
             continue
         cand, ctn, rays, tris, stop = args
         live += bounds.rounds_run(cand, tris)
@@ -254,22 +309,19 @@ def guard_phase(lt, bounds, timer) -> float:
                                                                  stop)
         if not bool((stop < lt.list_counts(cand, tris.shape[0] - 1)).any()):
             continue
-        want, e, _early = hold_block_tiles(
-            lt, (cand, ctn, rays), tris,
-            f"phase 3 guard: block_tiles launch {held + 1} of the frame "
-            "where it fired")
+        want, e, _early = hold_tiles(
+            lt, name, (cand, ctn, rays), tris,
+            f"phase 3 guard: {name} launch {held + 1} of the frame where "
+            "it fired")
         if not torch.equal(stop, want):
-            raise RuntimeError("the frame's block_tiles stop differs from "
-                               "the plain version's")
+            raise RuntimeError(f"the frame's {name} stop differs from the "
+                               "plain version's")
         err = max(err, e)
         held += 1
-    log(f"phase 3 guard: it fired in {held} block_tiles launches of the "
-        f"frame and cut {cut} of {live} live block-rounds; each of those "
-        f"launches bit-identical to the plain version")
-    if not held:
-        raise RuntimeError("the tail guard stopped no list in the frame, so "
-                           "its kernel path went unchecked")
-    return err
+    log(f"phase 3 guard: it fired in {held} {name} launches of the frame "
+        f"and cut {cut} of {live} live list-rounds; each of those launches "
+        f"bit-identical to the plain version")
+    return err, held
 
 
 def kernel_entry(name, source, replaces, ms, plain_ms, work, err, bounds):
@@ -306,6 +358,7 @@ def main() -> int:
         from sycl_ray_tracing_tpu_torch.probes import (
             bounds,
             feature_smoke,
+            frame,
             kernel_shape,
             micro_round,
         )
@@ -388,32 +441,24 @@ def main() -> int:
         prim_launch, bounce_launch = blocks[0], max(
             blocks, key=lambda c: c[-1].shape[0])
         esc_launch = max(lists, key=lambda c: c[-1].shape[0])
-        kernels = [block_tiles_phase(lt, bounds, cuda_ms, tris, prim_launch,
-                                     bounce_launch, card)]
-
-        # the per-ray kernel at the largest escalation launch
-        cand, rays = esc_launch
-        at_k, ar_k = lt.list_tiles(cand, rays, tris)
-        at_p, ar_p = lt.list_tiles_plain(cand, rays, tris)
-        torch.cuda.synchronize()
-        same = torch.equal(at_k, at_p) and torch.equal(ar_k, ar_p)
-        err = max_abs_err(at_k, at_p)
-        log(f"phase 2 list_tiles: rays {rays.shape[0]}, maxc "
-            f"{cand.shape[1]}, bit-identical={same}")
-        if not same:
-            raise RuntimeError(f"list_tiles disagrees with its plain version "
-                               f"(max |dt| {err})")
-        ms = cuda_ms(lambda: lt.list_tiles(cand, rays, tris), 20)
-        plain_ms = cuda_ms(lambda: lt.list_tiles_plain(cand, rays, tris), 3)
-        work = bounds.list_tiles_work(cand, rays, tris)
-        entry = kernel_entry("list_tiles", LISTTRACE_CU, LIST_REPLACES, ms,
-                             plain_ms, work, err, bounds)
-        log(f"phase 2 list_tiles: {ms:.4f} ms kernel vs {plain_ms:.4f} ms "
-            f"plain per launch at {rays.shape[0]} rays, "
-            f"{live_note(cand, tris)}; bound {entry['bound_ms']:.4f} ms by "
-            f"{entry['bound_by']} ({entry['ops']:.4g} operations, "
-            f"{entry['bytes']:.4g} bytes) ({card})")
-        kernels.append(entry)
+        kernels = [tiles_phase(lt, "block_tiles", bounds, cuda_ms, tris,
+                               [("primary", prim_launch),
+                                ("bounce 1", bounce_launch)],
+                               bounce_launch, BLOCK_REPLACES, card),
+                   tiles_phase(lt, "list_tiles", bounds, cuda_ms, tris,
+                               [("largest escalation", esc_launch)],
+                               esc_launch, LIST_REPLACES, card)]
+        host_path(lt, esc_launch, tris, card)
+        # every rays-per-block instance of the per-ray kernel there: the
+        # main path keeps the fastest
+        cand, ctn, rays = esc_launch
+        for k in lt.LIST_RAYS_PER_BLOCK:
+            def call():
+                lt.list_tiles(cand, ctn, rays, tris, rays_per_block=k)
+            log(f"phase 2 list_tiles largest escalation launch at {k} rays "
+                f"per block: {cuda_ms(call, 20):.4f} ms back to back (CUDA "
+                f"events), {frame.kernel_ms(call, 'list_tiles_kernel'):.4f} "
+                f"ms device time per launch (profiler) ({card})")
 
         # _run's (t, packed, resolved, overflow): kernels == plain versions
         for label, run in (("primary", cap.runs[0]),
@@ -456,18 +501,18 @@ def main() -> int:
         t0 = time.perf_counter()
         img, aux = pt.render(scene, cam, cfg, key, with_aux=True)
         torch.cuda.synchronize()
-        frame = time.perf_counter() - t0
+        frame_s = time.perf_counter() - t0
         launches = dict(lt.LAUNCHES)
         for k in kernels:
             k["launches"] = launches[k["name"]]
         mean = float(img.mean())
         finite = bool(torch.isfinite(img).all())
         tm = tonemap(img)
-        mrays = W * H * 1 * BOUNCES / frame / 1e6
+        mrays = W * H * 1 * BOUNCES / frame_s / 1e6
         log(f"phase 3 frame: {tuple(img.shape)} finite={finite} mean={mean:.6f} "
             f"tonemapped mean={float(tm.mean()):.6f} "
             f"overflow={aux['overflow']} launches={launches}")
-        log(f"phase 3 frame time {frame * 1e3:.1f} ms warm ({cold * 1e3:.1f} "
+        log(f"phase 3 frame time {frame_s * 1e3:.1f} ms warm ({cold * 1e3:.1f} "
             f"ms first), {mrays:.3f} Mrays/s ({W}x{H}x1spp x{BOUNCES} bounces "
             f"/ frame time), card {card}")
         if not finite or mean <= 1e-4 or aux["overflow"] \
@@ -480,16 +525,29 @@ def main() -> int:
         # one more frame with every list-kernel launch timed and bounded
         with LaunchTimer(lt) as timer:
             pt.render(scene, cam, cfg, key)
-        works = {"block_tiles": lambda cand, ctn, rays, tris, stop:
-                 bounds.block_tiles_work(cand, rays, tris, stop),
-                 "list_tiles": bounds.list_tiles_work}
-        for name, (n, ms, b_ms) in timer.per_kernel(works, bounds).items():
+        per_frame = timer.per_kernel(bounds)
+        # one more frame under the profiler: each list kernel's device
+        # time, without the host's launch path that the events hold
+        prof = frame.profile(lambda: pt.render(scene, cam, cfg, key))
+        for name, (n, ms, h_ms, b_ms) in per_frame.items():
+            pn, dev_ms, _top = prof["kernels"][f"{name}_kernel"]
             log(f"phase 3 per frame {name}: {n} launches, {ms:.4f} ms kernel "
                 f"(CUDA events around each launch), {b_ms:.4f} ms sum of "
-                f"per-launch bounds, {ms - b_ms:.4f} ms above them ({card})")
-        block = kernels[0]
-        block["max_abs_err"] = max(block["max_abs_err"],
-                                   guard_phase(lt, bounds, timer))
+                f"per-launch bounds, {ms - b_ms:.4f} ms above them; "
+                f"{h_ms:.4f} ms on the host clock inside the wrapper; "
+                f"profiled frame: {pn} launches, {dev_ms:.4f} ms device "
+                f"time, so {ms - dev_ms:.4f} ms of the event time is the "
+                f"host's launch path and idle card ({card})")
+        for line in frame.report(prof, "phase 3 profiled", card):
+            log(line)
+        for entry in kernels[:2]:
+            err, held = guard_phase(lt, bounds, timer, entry["name"])
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            if entry["name"] == "block_tiles" and not held:
+                raise RuntimeError("the tail guard stopped no block list in "
+                                   "the frame, so its kernel path went "
+                                   "unchecked")
+        block, per_ray = kernels[0], kernels[1]
 
         # ---- phase 4: one 8-bounce tile, kernels vs plain versions ----
         rad_k, aux_k = pt.render_rays(scene, cam, px0, py0, W, H, tile_key,
@@ -536,38 +594,46 @@ def main() -> int:
                 f"{entry['bytes']:.4g} bytes)")
             kernels.append(entry)
 
-        # the per-ray kernel at every rays-per-block, and its lane-min form,
-        # on kernel_shape's 98,304-ray wavefront (maxc 32)
+        # kernel_shape's 98,304-ray sorted surface wavefront and its lists
         ks = kernel_shape.workload(scene)
         rays5, tris5 = ks["rays"], ks["tris"]
         # the block kernel on the grouped lists at maxc 96, where the
         # guard stops lists of the sorted wavefront
-        _stop, err, early = hold_block_tiles(
-            lt, (*kernel_shape.block_lists(ks, kernel_shape.SHARE_MAXC),
-                 rays5), tris5,
-            "phase 5 block_tiles on kernel_shape's grouped lists")
+        _stop, err, early = hold_tiles(
+            lt, "block_tiles",
+            (*kernel_shape.block_lists(ks, kernel_shape.SHARE_MAXC), rays5),
+            tris5, "phase 5 block_tiles on kernel_shape's grouped lists")
         if not early:
             raise RuntimeError("the tail guard stopped no list of "
                                "kernel_shape's grouped lists")
         block["max_abs_err"] = max(block["max_abs_err"], err)
-        cnd = kernel_shape.per_ray_lists(ks, 32)
-        at_p, ar_p = lt.list_tiles_plain(cnd, rays5, tris5)
+        # the per-ray kernel at every rays-per-block instance on the
+        # per-ray lists at maxc 32, where the guard must stop rays
+        cnd, ctn5 = kernel_shape.per_ray_lists(ks, 32)
         for k in lt.LIST_RAYS_PER_BLOCK:
-            hold(f"list_tiles rays_per_block={k} ({cnd.shape[0]} rays, "
-                 f"maxc 32)",
-                 lambda: lt.list_tiles(cnd, rays5, tris5, rays_per_block=k),
-                 lambda: (at_p, ar_p))
-        tmin_p = at_p.amin(dim=1)
-        err = hold("list_tiles_min (lane min of list_tiles_plain)",
+            _stop, err, early = hold_tiles(
+                lt, "list_tiles", (cnd, ctn5, rays5), tris5,
+                f"phase 5 list_tiles rays_per_block={k} on kernel_shape's "
+                "per-ray lists", rays_per_block=k)
+            if not early:
+                raise RuntimeError("the tail guard stopped no ray of "
+                                   "kernel_shape's per-ray lists")
+            per_ray["max_abs_err"] = max(per_ray["max_abs_err"], err)
+            check_info(lt, "list_tiles",
+                       f"phase 5 list_tiles rays_per_block={k}",
+                       rays_per_block=k)
+        log(f"phase 5 list_tiles: {live_note(cnd, tris5)}; the guard let "
+            f"{bounds.rounds_run(cnd, tris5, _stop)} of "
+            f"{bounds.rounds_run(cnd, tris5)} live ray-rounds run")
+        err = hold("list_tiles_min (lane min of the unguarded walk)",
                    lambda: pk.list_tiles_min(cnd, rays5, tris5),
-                   lambda: tmin_p)
+                   lambda: pk.list_tiles_min_plain(cnd, rays5, tris5))
         probe_entry("list_tiles_min", "scratch/kernel_shape_bench.py:90",
                     lambda: pk.list_tiles_min(cnd, rays5, tris5),
                     lambda: pk.list_tiles_min(cnd, rays5, tris5,
                                               impl="plain"),
                     bounds.list_tiles_min_work(cnd, rays5, tris5), err,
                     f"{cnd.shape[0]} rays, maxc 32")
-        del at_p, ar_p
 
         # the synthetic round: every variant, every sub-block count
         mr = micro_round.workload(dev)

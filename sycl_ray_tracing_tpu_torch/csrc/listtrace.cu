@@ -11,17 +11,18 @@
 // XLA.
 //
 // Inputs
-//   cand  i32 [rows_or_blocks, maxc]  cluster id per round; the dummy id
-//                                     K2 marks an empty slot
-//   ctn   f32 [blocks, maxc]          entry-t per slot, ascending along a
-//                                     list (block kernel only)
-//   rays  f32 [rays, 8]               o3 d3 t_lim anyhit_flag
-//   tris  f32 [K2+1, 9, 128]          planar tiles (ax ay az bx .. cz);
-//                                     row K2 is the all-zero dummy
+//   cand  i32 [lists, maxc]   cluster id per round; the dummy id K2 marks
+//                             an empty slot
+//   ctn   f32 [lists, maxc]   entry-t per slot, ascending along a list
+//   rays  f32 [rays, 8]       o3 d3 t_lim anyhit_flag
+//   tris  f32 [K2+1, 9, 128]  planar tiles (ax ay az bx .. cz); row K2 is
+//                             the all-zero dummy
+// A list is a block of 32 rays' shared list (block kernel) or one ray's
+// own (per-ray kernel).
 // Outputs
 //   at    f32 [rays, 128], ar i32 [rays, 128]
-//   stop  i32 [blocks]                first round a block did not run
-//                                     (maxc if its guard never fired)
+//   stop  i32 [lists]         first round a list did not run (maxc if its
+//                             guard never fired)
 //
 // Arithmetic: mt8.cuh, built with -fmad=false (bit-identical to the plain
 // torch versions).  Tensor cores do not apply: the work is FP32 cross
@@ -30,8 +31,14 @@
 //
 // Round skipping: both kernels skip rounds whose candidate is the dummy id
 // K2 (its zero tile makes every ray parallel, so such a round never
-// updates anything).  The block kernel also runs the TPU kernel's tail
-// guard; the per-ray kernel does not yet.
+// updates anything), and both run the TPU kernel's tail guard: rounds
+// 0..GROUP-1 always run; before each chunk start c0 = GROUP + k*CHUNK
+// below the list's count, bt = min over lanes of at, and the list stops
+// at c0 unless a ray of it is useful: ctn[c0] < bt and not (any-hit and
+// bt < t_lim).  Entry-t ascends along a list, so no later round can
+// improve a closest-hit ray that is not useful.  The TPU checked once, at
+// GROUP (each check serialised its pipeline); here each check is one
+// reduction, so it is made at every chunk start.
 
 #include "mt8.cuh"
 
@@ -48,12 +55,53 @@ constexpr int kTilePieces = kTileFloats / 4;  // 16-byte cp.async pieces
 constexpr int kStages = 3;       // tiles in the shared-memory ring
 constexpr int kRpt = 8;          // rays per thread of the block kernel
 constexpr int kBlockThreads = kLanes * kRbShare / kRpt;  // 512
+constexpr int kListGroups = 4;   // per-ray kernel: warp groups of 128 lanes
+constexpr int kListThreads = kListGroups * kLanes;        // 512
+constexpr int kListAhead = 2;    // live rounds a group fetches ahead
+constexpr int kListStages = kListAhead + 1;  // tiles in a group's ring
+constexpr int kMaxChecks = (kMaxc - kGroup + kChunk - 1) / kChunk;  // 8
+constexpr int kListRingBytes =
+    kListGroups * kListStages * kTileFloats * (int)sizeof(float);  // 55 KB
 
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// One warp compacts a list's live (non-dummy) slots, in round order: the
+// k-th live slot's cluster id into live[k] and its round into rounds[k].
+// Returns their count, in every lane.
+__device__ __forceinline__ int compact_list(const int32_t* __restrict__ crow,
+                                            int maxc, int dummy,
+                                            int32_t* live, int32_t* rounds) {
+  const int wlane = threadIdx.x & 31;
+  int n = 0;
+  for (int r0 = 0; r0 < maxc; r0 += 32) {
+    const int r = r0 + wlane;
+    const int c = r < maxc ? crow[r] : dummy;
+    const unsigned on = __ballot_sync(0xffffffffu, c != dummy);
+    if (c != dummy) {
+      const int k = n + __popc(on & ((1u << wlane) - 1u));
+      live[k] = c;
+      rounds[k] = r;
+    }
+    n += __popc(on);
+  }
+  return n;
+}
+
+// 16 bytes global -> shared, asynchronously; through L2 only (.cg), or
+// through L1 too (.ca, kL1) where blocks of an SM name the same tiles.
+template <bool kL1 = false>
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
+  if (kL1)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+  else
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -96,15 +144,10 @@ __device__ __forceinline__ void cp_async_wait() {
 //     one block of 16 warps runs per SM and a long list has its SM to
 //     itself.  Outputs are written in place, so the order changes
 //     nothing.
-//  4. The tail guard of the TPU kernel.  Rounds 0..GROUP-1 always run;
-//     before each chunk starting at c0 = GROUP + k*CHUNK below the list's
-//     count, bt[i] = min over lanes of at[i, :] (a warp min, then a
-//     shared-memory min across the 4 lane warps, one __syncthreads), and
-//     the block stops at c0 unless some ray is useful: ctn[c0] < bt[i] and
-//     not (any-hit and bt[i] < t_lim).  Entry-t ascends along a list, so no
-//     later round can improve a closest-hit ray that is not useful.  The
-//     TPU checked once, at GROUP (each check serialised its pipeline); here
-//     a check is one block reduction, so it is made at every chunk.
+//  4. The tail guard of the TPU kernel (see the top of this file), with
+//     bt[i] for each of the 32 rays: a warp min, then a shared-memory min
+//     across the 4 lane warps, one __syncthreads; the block stops when
+//     none of its rays is useful.
 __global__ void __launch_bounds__(kBlockThreads, 1)
 block_tiles_kernel(const int32_t* __restrict__ cand,
                    const float* __restrict__ ctn,
@@ -132,18 +175,8 @@ block_tiles_kernel(const int32_t* __restrict__ cand,
   for (int i = tid; i < maxc; i += kBlockThreads)
     sctn[i] = ctn[(size_t)b * maxc + i];
   if (tid < 32) {  // warp 0 compacts the live slots, in round order
-    int n = 0;
-    for (int r0 = 0; r0 < maxc; r0 += 32) {
-      const int r = r0 + wlane;
-      const int c = r < maxc ? cand[(size_t)b * maxc + r] : dummy;
-      const unsigned live = __ballot_sync(0xffffffffu, c != dummy);
-      if (c != dummy) {
-        const int k = n + __popc(live & ((1u << wlane) - 1u));
-        slive[k] = c;
-        sround[k] = r;
-      }
-      n += __popc(live);
-    }
+    const int n = compact_list(cand + (size_t)b * maxc, maxc, dummy, slive,
+                               sround);
     if (wlane == 0) snlive = n;
   }
   __syncthreads();
@@ -172,9 +205,7 @@ block_tiles_kernel(const int32_t* __restrict__ cand,
       // between them, so they share one bt)
 #pragma unroll
       for (int j = 0; j < kRpt; ++j) {
-        float v = at[j];
-        for (int off = 16; off > 0; off >>= 1)
-          v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+        const float v = srt::warp_min(at[j]);
         if (wlane == j) swmin[lane / 32][ray0 + j] = v;
       }
       __syncthreads();
@@ -262,105 +293,234 @@ longest_first_kernel(const int32_t* __restrict__ count,
     order[atomicAdd(&next[count[b]], 1)] = b;
 }
 
-// Replaces _list_kernel_impl (listtrace.py:245-295): one CUDA block per
-// ray walking its OWN list; thread = lane.  The main path's shape.
-__global__ void __launch_bounds__(kLanes)
+// Replaces _list_kernel_impl (sycl_ray_tracing_tpu/ops/pallas/
+// listtrace.py:245-295) with its _tail_guard (:197-242): each ray walks its
+// OWN list.  A CUDA block of 512 threads (4 warp groups of 128 lanes)
+// holds kRays rays; kRays = 1 on the main path (the escalation pass), 8 /
+// 16 / 32 (the TPU kernel's RB) for the probes.  Outputs do not depend on
+// kRays.
+//
+// What bounds it on an H100: latency, not FP32 issue.  The escalation
+// launch is a few hundred rays, one block each on 132 SMs, with lists of
+// up to 128 rounds; a round is 128 lanes x ~60 operations, so a warp
+// group computes one in well under the ~600 cycles of an L2 tile load,
+// and the first version (one 128-thread block per ray walking every slot,
+// with a dependent load of the slot's id and then of the lane's tile
+// data) took ~700 cycles a slot.  What the design does about it:
+//  1. One read of the list.  The team's first warp compacts the ray's
+//     live (non-dummy) slots into shared memory with a ballot, and stages
+//     the ray and the entry-t of each chunk start; no round waits on a
+//     load of its id.
+//  2. A ray's rounds split across warp groups.  With one ray per block
+//     the 4 groups (a "team") take its live rounds in turn (group g the
+//     k-th with k % 4 == g), so a list of 128 live rounds is 32 rounds
+//     deep per group.  Each group keeps its lanes' (t, round) with a
+//     strict '<' over its own rounds, in order; at the end the groups'
+//     pairs are merged by least t, then least round, which is the
+//     in-order walk's answer bit for bit (the earliest round wins a tie).
+//     With 8 or more rays per block each group is a team of its own and
+//     walks kRays / 4 rays one after another.
+//  3. Tiles staged ahead.  Each group fetches its next kListAhead = 2
+//     live rounds' tiles into its own 3-stage shared-memory ring with
+//     cp.async (16 B a thread), so a round's tile was asked for two of the
+//     group's rounds earlier; one 128-thread named barrier a round.  The
+//     copies go through L1 (.ca): sorted neighbouring rays name the same
+//     tiles, and at 98,304 rays the L2-only path (.cg) took 1.5x as long.
+//     Fetching 4 rounds ahead, or running the fetches on from one ray of
+//     a group into the next, measured no faster (PERF.md).
+//  4. The tail guard, per ray.  bt only needs the least t over the team's
+//     lanes, which is the merge's t (min is associative), so a check is a
+//     warp min and one team barrier; every group arrives at the check for
+//     c0 only after its live rounds below c0 (its rounds are in order), so
+//     all see the serial walk's bt and stop at the same c0.  The check is
+//     per ray (the TPU gated its 8-ray block on "any ray useful"), so the
+//     outputs do not depend on kRays.
+// The ring is 55 KB of dynamic shared memory.  At 40 registers three
+// blocks fit an SM but ptxas spilled; at up to 64, two blocks (32 warps)
+// run per SM with no spill, and measured faster (PERF.md).
+//
+// At 98,304 rays with ~10 rounds each (the probes) the first version, 16
+// blocks of 4 warps per SM with no barrier, was faster: there many rays
+// hide the latency, and the per-ray compaction, barriers and merge of
+// this design cost more than they save (PERF.md).
+template <int kRays>
+__global__ void __launch_bounds__(kListThreads, 2)
 list_tiles_kernel(const int32_t* __restrict__ cand,
+                  const float* __restrict__ ctn,
                   const float* __restrict__ rays,
                   const float* __restrict__ tris, float* __restrict__ at_out,
-                  int32_t* __restrict__ ar_out, int maxc, int dummy) {
-  const int row = blockIdx.x;
-  const int lane = threadIdx.x;
-  const float* ray = rays + (size_t)row * 8;
-  const float ox = ray[0], oy = ray[1], oz = ray[2];
-  const float dx = ray[3], dy = ray[4], dz = ray[5], tl = ray[6];
-  const int32_t* crow = cand + (size_t)row * maxc;
-  float at = tl;
-  int32_t ar = -1;
-  for (int r = 0; r < maxc; ++r) {
-    const int c = crow[r];
-    if (c == dummy) continue;  // uniform across the block
-    const float t = srt::mt8(srt::load_lane(tris, c, lane), ox, oy, oz, dx,
-                             dy, dz, tl);
-    if (t < at) {
-      at = t;
-      ar = r;
+                  int32_t* __restrict__ ar_out, int32_t* __restrict__ stop_out,
+                  int nrays, int maxc, int dummy) {
+  static_assert(kRays == 1 || kRays % kListGroups == 0, "rays per block");
+  constexpr int kSplit = kRays == 1 ? kListGroups : 1;  // groups per ray
+  constexpr int kTeams = kListGroups / kSplit;          // rays at once
+  constexpr int kTeamThreads = kSplit * kLanes;
+  constexpr int kTeamWarps = kTeamThreads / 32;
+  extern __shared__ __align__(16) float ring[];  // [group][stage][tile]
+  __shared__ int32_t slive[kTeams][kMaxc];   // cluster id of the k-th live round
+  __shared__ int32_t sround[kTeams][kMaxc];  // and its round index
+  __shared__ __align__(16) float sray[kTeams][8];
+  __shared__ float sck[kTeams][kMaxChecks];  // entry-t at each chunk start
+  __shared__ float swmin[2][kTeams][kTeamWarps];  // guard: per-warp minima
+  __shared__ float smt[kSplit][kLanes];      // merge: the groups' (t, round)
+  __shared__ int32_t smr[kSplit][kLanes];
+  __shared__ int snlive[kTeams];
+
+  const int tid = threadIdx.x;
+  const int lane = tid % kLanes;
+  const int group = tid / kLanes;
+  const int team = group / kSplit;
+  const int sub = group % kSplit;  // the group takes live rounds k % kSplit == sub
+  const int ttid = tid % kTeamThreads;
+  const int wlane = tid & 31;
+  float* stile = ring + group * kListStages * kTileFloats;
+  auto group_sync = [&] { bar_sync(1 + group, kLanes); };
+  auto team_sync = [&] {
+    if (kSplit == 1)
+      group_sync();
+    else
+      __syncthreads();
+  };
+  const int32_t* live = slive[team];
+  const int32_t* rounds = sround[team];
+  const float* ray = sray[team];
+
+  for (int j = team; j < kRays; j += kTeams) {
+    const int row = blockIdx.x * kRays + j;
+    if (row >= nrays) break;  // the ragged last block; uniform over the team
+    if (ttid < 32) {  // the team's first warp compacts the list, in order
+      const int n = compact_list(cand + (size_t)row * maxc, maxc, dummy,
+                                 slive[team], sround[team]);
+      if (wlane == 0) snlive[team] = n;
+      if (wlane < 8) sray[team][wlane] = rays[(size_t)row * 8 + wlane];
+      if (wlane < kMaxChecks && kGroup + wlane * kChunk < maxc)
+        sck[team][wlane] = ctn[(size_t)row * maxc + kGroup + wlane * kChunk];
     }
-  }
-  at_out[(size_t)row * kLanes + lane] = at;
-  ar_out[(size_t)row * kLanes + lane] = ar;
-}
+    team_sync();
 
-// The per-ray kernel with kRays rays per CUDA block: the TPU kernel's RB
-// (rays per grid step, swept by scratch/kernel_shape_bench.py:117).  Each
-// round walks the block's kRays rays, each against its OWN tile, so a
-// thread issues kRays independent lane loads per round instead of one;
-// the rays' fields and lists sit in shared memory and their (t, round)
-// pairs in registers.  Outputs are bit-identical to list_tiles_kernel.
-// Bound on an H100: FP32 issue, as list_tiles_kernel; the extra loads in
-// flight do not pay for the larger register state (the probes time it
-// at 1.5-2.4x list_tiles_kernel per ray, PERF.md), so the main path
-// keeps one ray per block.
-template <int kRays>
-__global__ void __launch_bounds__(kLanes)
-list_tiles_rays_kernel(const int32_t* __restrict__ cand,
-                       const float* __restrict__ rays,
-                       const float* __restrict__ tris,
-                       float* __restrict__ at_out,
-                       int32_t* __restrict__ ar_out, int nrays, int maxc,
-                       int dummy) {
-  __shared__ float sray[kRays][8];
-  __shared__ int32_t scand[kRays][kMaxc];
-  const int row0 = blockIdx.x * kRays;
-  const int lane = threadIdx.x;
-  const int nr = min(kRays, nrays - row0);  // the ragged last block
-  for (int i = lane; i < kRays * 8; i += kLanes)
-    sray[i / 8][i % 8] = i / 8 < nr ? rays[(size_t)row0 * 8 + i] : 0.0f;
-  for (int i = lane; i < kRays * maxc; i += kLanes) {
-    const int k = i / maxc, r = i % maxc;
-    scand[k][r] = k < nr ? cand[(size_t)(row0 + k) * maxc + r] : dummy;
-  }
-  __syncthreads();
-
-  float at[kRays];
-  int32_t ar[kRays];
+    const int nlive = snlive[team];
+    const int count = nlive > 0 ? rounds[nlive - 1] + 1 : 0;
+    float at = ray[6];
+    int32_t ar = -1;
+    int stop = maxc;
+    auto fetch = [&](int i) {  // the group's i-th live round into its ring
+      const int k = sub + i * kSplit;
+      if (k < nlive) {
+        const float* src = tris + (size_t)live[k] * kTileFloats;
+        float* dst = stile + (i % kListStages) * kTileFloats;
+        for (int e = lane; e < kTilePieces; e += kLanes)
+          cp_async16<true>(dst + 4 * e, src + 4 * e);
+      }
+      cp_async_commit();  // one group a call, empty or not
+    };
+    for (int i = 0; i < kListAhead; ++i) fetch(i);
+    int next_c0 = kGroup;
+    for (int i = 0;; ++i) {
+      const int k = sub + i * kSplit;
+      const int r = k < nlive ? rounds[k] : count;
+      // the guard at each chunk start c0 <= r below the count: the whole
+      // team has run its live rounds below c0, so every group sees one bt
+      for (; next_c0 <= r && next_c0 < count; next_c0 += kChunk) {
+        // consecutive checks of a ray write alternate halves of swmin,
+        // so one barrier a check suffices
+        const int check = (next_c0 - kGroup) / kChunk;
+        const float v = srt::warp_min(at);
+        if (wlane == 0) swmin[check & 1][team][ttid / 32] = v;
+        team_sync();
+        float bt = swmin[check & 1][team][0];
 #pragma unroll
-  for (int i = 0; i < kRays; ++i) {
-    at[i] = sray[i][6];
-    ar[i] = -1;
-  }
-  for (int r = 0; r < maxc; ++r) {
-#pragma unroll
-    for (int i = 0; i < kRays; ++i) {
-      const int c = scand[i][r];
-      if (c == dummy) continue;  // uniform across the block
-      const float t = srt::mt8(srt::load_lane(tris, c, lane), sray[i][0],
-                               sray[i][1], sray[i][2], sray[i][3], sray[i][4],
-                               sray[i][5], sray[i][6]);
-      if (t < at[i]) {
-        at[i] = t;
-        ar[i] = r;
+        for (int w = 1; w < kTeamWarps; ++w)
+          bt = fminf(bt, swmin[check & 1][team][w]);
+        const bool done = ray[7] > 0.0f && bt < ray[6];
+        if (!(sck[team][check] < bt) || done) {
+          stop = next_c0;
+          break;
+        }
+      }
+      if (stop < maxc || k >= nlive) break;
+      cp_async_wait<kListAhead - 1>();  // this thread's pieces of round i
+      group_sync();  // everyone's; nobody still reads round i-1's stage
+      fetch(i + kListAhead);            // into round i-1's stage
+      const srt::Lane L =
+          srt::load_lane(stile + (i % kListStages) * kTileFloats, 0, lane);
+      const float4 p = reinterpret_cast<const float4*>(ray)[0];
+      const float4 q = reinterpret_cast<const float4*>(ray)[1];
+      const float t = srt::mt8(L, p.x, p.y, p.z, p.w, q.x, q.y, q.z);
+      if (t < at) {
+        at = t;
+        ar = r;
       }
     }
-  }
-#pragma unroll
-  for (int i = 0; i < kRays; ++i) {
-    if (i < nr) {
-      const size_t o = ((size_t)row0 + i) * kLanes + lane;
-      at_out[o] = at[i];
-      ar_out[o] = ar[i];
+    cp_async_wait<0>();
+
+    if (kSplit > 1) {  // merge: least t, then least round
+      if (sub > 0) {
+        smt[sub][lane] = at;
+        smr[sub][lane] = ar;
+      }
+      team_sync();
     }
+    if (sub == 0) {
+#pragma unroll
+      for (int g = 1; g < kSplit; ++g) {
+        const float t = smt[g][lane];
+        const int32_t r = smr[g][lane];
+        if (t < at || (t == at && r < ar)) {
+          at = t;
+          ar = r;
+        }
+      }
+      at_out[(size_t)row * kLanes + lane] = at;
+      ar_out[(size_t)row * kLanes + lane] = ar;
+      if (lane == 0) stop_out[row] = stop;
+    }
+    // the next ray reuses the team's list, ring and guard minima (its
+    // first check writes swmin[0] again)
+    team_sync();
   }
 }
 
+// The per-ray kernel's instance for kRays rays per block, its ring's
+// shared memory allowed once (above the 48 KB default).
 template <int kRays>
-void launch_list_rays(const void* cand, const void* rays, const void* tris,
-                      void* at, void* ar, int nrays, int maxc, int dummy,
-                      cudaStream_t stream) {
+cudaError_t list_tiles_prepare() {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      list_tiles_kernel<kRays>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kListRingBytes);
+  return e;
+}
+
+template <int kRays>
+int launch_list_tiles(const void* cand, const void* ctn, const void* rays,
+                      const void* tris, void* at, void* ar, void* stop,
+                      int nrays, int maxc, int dummy, cudaStream_t stream) {
+  cudaError_t e = list_tiles_prepare<kRays>();
+  if (e != cudaSuccess) return (int)e;
   const int grid = (nrays + kRays - 1) / kRays;
-  list_tiles_rays_kernel<kRays><<<grid, kLanes, 0, stream>>>(
-      (const int32_t*)cand, (const float*)rays, (const float*)tris,
-      (float*)at, (int32_t*)ar, nrays, maxc, dummy);
+  list_tiles_kernel<kRays><<<grid, kListThreads, kListRingBytes, stream>>>(
+      (const int32_t*)cand, (const float*)ctn, (const float*)rays,
+      (const float*)tris, (float*)at, (int32_t*)ar, (int32_t*)stop, nrays,
+      maxc, dummy);
+  return (int)cudaGetLastError();
+}
+
+template <int kRays>
+int list_tiles_info(int* info) {
+  cudaError_t e = list_tiles_prepare<kRays>();
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, list_tiles_kernel<kRays>);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, list_tiles_kernel<kRays>, kListThreads, kListRingBytes);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = a.numRegs;
+  info[1] = (int)a.localSizeBytes;
+  info[2] = blocks;
+  info[3] = kListThreads;
+  info[4] = (int)a.sharedSizeBytes + kListRingBytes;
+  return 0;
 }
 
 }  // namespace
@@ -397,8 +557,9 @@ int srt_block_tiles(const void* cand, const void* ctn, const void* rays,
   return (int)cudaGetLastError();
 }
 
-// info[0..3] = the block kernel's registers per thread, local (spill)
-// bytes per thread, resident blocks per SM, threads per block.
+// info[0..4] = the block kernel's registers per thread, local (spill)
+// bytes per thread, resident blocks per SM, threads per block, shared
+// bytes per block.
 int srt_block_tiles_info(int* info) {
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, block_tiles_kernel);
@@ -411,42 +572,52 @@ int srt_block_tiles_info(int* info) {
   info[1] = (int)a.localSizeBytes;
   info[2] = blocks;
   info[3] = kBlockThreads;
+  info[4] = (int)a.sharedSizeBytes;
   return 0;
 }
 
-int srt_list_tiles(const void* cand, const void* rays, const void* tris,
-                   void* at, void* ar, int nrays, int maxc, int dummy,
+// list_tiles with rays_per_block in {1, 8, 16, 32} rays per CUDA block.
+int srt_list_tiles(const void* cand, const void* ctn, const void* rays,
+                   const void* tris, void* at, void* ar, void* stop,
+                   int nrays, int maxc, int dummy, int rays_per_block,
                    void* stream) {
   if (maxc < 1 || maxc > kMaxc) return (int)cudaErrorInvalidValue;
-  if (nrays > 0)
-    list_tiles_kernel<<<nrays, kLanes, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)cand, (const float*)rays, (const float*)tris,
-        (float*)at, (int32_t*)ar, maxc, dummy);
-  return (int)cudaGetLastError();
+  if (nrays < 1) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (rays_per_block) {
+    case 1:
+      return launch_list_tiles<1>(cand, ctn, rays, tris, at, ar, stop, nrays,
+                                  maxc, dummy, s);
+    case 8:
+      return launch_list_tiles<8>(cand, ctn, rays, tris, at, ar, stop, nrays,
+                                  maxc, dummy, s);
+    case 16:
+      return launch_list_tiles<16>(cand, ctn, rays, tris, at, ar, stop,
+                                   nrays, maxc, dummy, s);
+    case 32:
+      return launch_list_tiles<32>(cand, ctn, rays, tris, at, ar, stop,
+                                   nrays, maxc, dummy, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-// list_tiles with rays_per_block in {8, 16, 32} rays per CUDA block.
-int srt_list_tiles_rays(const void* cand, const void* rays, const void* tris,
-                        void* at, void* ar, int nrays, int maxc, int dummy,
-                        int rays_per_block, void* stream) {
-  if (maxc < 1 || maxc > kMaxc) return (int)cudaErrorInvalidValue;
-  if (nrays > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    switch (rays_per_block) {
-      case 8:
-        launch_list_rays<8>(cand, rays, tris, at, ar, nrays, maxc, dummy, s);
-        break;
-      case 16:
-        launch_list_rays<16>(cand, rays, tris, at, ar, nrays, maxc, dummy, s);
-        break;
-      case 32:
-        launch_list_rays<32>(cand, rays, tris, at, ar, nrays, maxc, dummy, s);
-        break;
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
+// info[0..4] = the per-ray kernel's instance for rays_per_block: registers
+// per thread, local (spill) bytes per thread, resident blocks per SM,
+// threads per block, shared bytes per block (static + the ring).
+int srt_list_tiles_info(int rays_per_block, int* info) {
+  switch (rays_per_block) {
+    case 1:
+      return list_tiles_info<1>(info);
+    case 8:
+      return list_tiles_info<8>(info);
+    case 16:
+      return list_tiles_info<16>(info);
+    case 32:
+      return list_tiles_info<32>(info);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

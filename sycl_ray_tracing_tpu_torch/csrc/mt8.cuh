@@ -64,12 +64,18 @@ __device__ __forceinline__ float mt8(const Lane& L, float ox, float oy,
   return ok ? t : kBigT;
 }
 
+// Minimum of v over the 32 lanes of a warp; every lane gets it.
+__device__ __forceinline__ float warp_min(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
 // Minimum of v over the 128 threads of a block (4 warps); every thread
 // gets it.  `scratch` holds 4 floats of shared memory; the caller makes
 // sure no thread still reads it from an earlier call.
 __device__ __forceinline__ float block_min128(float v, float* scratch) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  v = warp_min(v);
   if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
   __syncthreads();
   return fminf(fminf(scratch[0], scratch[1]), fminf(scratch[2], scratch[3]));

@@ -18,11 +18,13 @@ using srt::kLanes;
 //
 // Replaces the in-kernel-reduction probe of scratch/kernel_shape_bench.py:
 // 83-115 (_list_kernel_impl plus jnp.min over lanes, output (B, 1)).
-// One CUDA block per ray, thread = lane, as list_tiles_kernel; after the
-// rounds a warp-shuffle + shared-memory min over the 128 lanes gives the
-// ray's t.  Bound on an H100: FP32 issue (~60 operations per ray, lane and
-// live round), as list_tiles; what the design removes is the [rays, 128]
-// x 2 output (1 KB per ray written, 4 B instead).
+// One CUDA block per ray, thread = lane, walking every live slot with no
+// tail guard (the per-ray kernel's first shape; listtrace.cu's
+// list_tiles_kernel has since been redesigned); after the rounds a
+// warp-shuffle + shared-memory min over the 128 lanes gives the ray's t.
+// Bound on an H100: FP32 issue (~60 operations per ray, lane and live
+// round); what the design removes is the [rays, 128] x 2 output (1 KB per
+// ray written, 4 B instead).
 __global__ void __launch_bounds__(kLanes)
 list_tiles_min_kernel(const int32_t* __restrict__ cand,
                       const float* __restrict__ rays,

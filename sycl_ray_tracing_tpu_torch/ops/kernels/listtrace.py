@@ -9,15 +9,23 @@ its tie rule and the distance + membership certificates (``_run_once``);
 then the compacted per-ray escalation pass and the honest overflow flag
 (``_run``).
 
-Kernels (csrc/listtrace.cu, CUDA C++ for sm_90a):
-  * ``block_tiles`` replaces ``_block_kernel_impl`` with its tail guard:
-    one list per block of RB_SHARE=32 sorted rays; it runs the primaries
-    and every fused bounce query.  After GROUP rounds, before each CHUNK of
-    rounds, a block stops once no ray can still gain (the usefulness guard
-    and the any-hit exit of ``_tail_guard``); it returns where it stopped.
+Kernels (csrc/listtrace.cu, CUDA C++ for sm_90a), both with the tail
+guard of ``_tail_guard``: after GROUP rounds, before each CHUNK of rounds
+below the list's count, a list stops once no ray of it can still gain
+(the usefulness guard and the any-hit exit); each returns where it
+stopped (``stop``, maxc if never):
+  * ``block_tiles`` replaces ``_block_kernel_impl``: one list per block of
+    RB_SHARE=32 sorted rays; it runs the primaries and every fused bounce
+    query.
   * ``list_tiles`` replaces ``_list_kernel_impl``: each ray walks its own
-    list; it runs the escalation pass (one ray per CUDA block; the probes
-    also run it at 8, 16 and 32 rays per block, the TPU kernel's RB).
+    list, and the guard is per ray (the TPU gated an 8-ray block on its
+    max count and on "any ray useful"), so the outputs do not depend on
+    ``rays_per_block``; it runs the escalation pass (one ray per CUDA
+    block; the probes also run 8, 16 and 32, the TPU kernel's RB).
+The guard keeps a closest-hit ray's (t, packed, resolved) exact.  An
+any-hit ray that is already blocked may keep a farther hit than the
+nearest, as on the TPU (listtrace.py:929-932); its callers read only
+``packed >= 0``.
 Each wrapper sends CPU tensors to its plain torch version, beside it in
 this module, and launches the CUDA kernel for CUDA tensors (or raises).
 ``impl="plain"`` forces the plain version, for comparisons only.
@@ -54,8 +62,8 @@ DEFAULT_MAXC = 32  # per-ray candidate slots
 DEFAULT_MAXC_SHARE = 128  # block-union slots
 ESC_CAP_DIV = 4    # escalation compaction: cap ~= B/4 rows (>= 256)
 HIER_MAXS = 16     # supercluster slots per block in the hierarchical build
-GROUP = 8          # block kernel: rounds before the first tail guard
-CHUNK = 16         # block kernel: rounds between tail guards
+GROUP = 8          # rounds before the first tail guard
+CHUNK = 16         # rounds between tail guards
 MAX_CLUSTERS = 8192  # 13-bit candidate ids / 20-bit packed winners
 LIST_SHARE_DEFAULT = True
 
@@ -96,15 +104,14 @@ def load_cuda_library() -> ctypes.CDLL:
         path = build_shared_library([CSRC], "liblisttrace", [nvcc_path()],
                                     NVCC_FLAGS, HEADERS)
         lib = ctypes.CDLL(str(path))
-        for name, nptr, nint in (("srt_block_tiles", 8, 3),
-                                 ("srt_list_tiles", 5, 3),
-                                 ("srt_list_tiles_rays", 5, 4)):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for name, args in (("srt_block_tiles", [p] * 8 + [i] * 3 + [p]),
+                           ("srt_list_tiles", [p] * 7 + [i] * 4 + [p]),
+                           ("srt_block_tiles_info", [p]),
+                           ("srt_list_tiles_info", [i, p])):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * nint + [
-                ctypes.c_void_p]
-        lib.srt_block_tiles_info.restype = ctypes.c_int
-        lib.srt_block_tiles_info.argtypes = [ctypes.c_void_p]
+            fn.argtypes = args
         _cuda_lib = lib
     return _cuda_lib
 
@@ -157,27 +164,29 @@ def list_counts(cand, dummy: int):
     return torch.where(cand != dummy, slot, 0).amax(dim=1)
 
 
-def block_tiles_plain(cand, ctn, rays, tris):
-    """Plain torch version of the block-shared kernel: a loop over rounds
-    of _mt8 on [blocks, RB_SHARE, 128] tensors, with the tail guard as a
-    per-block active mask updated before each chunk (c0 = GROUP +
-    k*CHUNK below the list's count): a block stops at c0 when none of its
-    rays is useful, i.e. ctn[c0] < best (min over lanes) and not an
-    any-hit ray already blocked (best < t_lim).  A stopped block runs the
-    dummy tile, which never updates.  Returns (at, ar, stop)."""
-    nb, maxc = cand.shape
+def _walk(cand, ctn, rays, tris):
+    """The plain list walk shared by both kernels' plain versions: a loop
+    over rounds of _mt8 on [lists, rays per list, 128] tensors, every ray
+    of a list against the list's tile of the round.  With ``ctn`` the
+    tail guard runs as a per-list active mask updated before each chunk
+    (c0 = GROUP + k*CHUNK below the list's count): a list stops at c0
+    when none of its rays is useful, i.e. ctn[c0] < best (min over lanes)
+    and not an any-hit ray already blocked (best < t_lim).  A stopped list
+    runs the dummy tile, which never updates.  ``ctn=None`` walks every
+    live round.  Returns (at, ar [rays, 128], stop [lists])."""
+    nl, maxc = cand.shape
     dummy = tris.shape[0] - 1
-    r = rays.view(nb, RB_SHARE, 8)
+    r = rays.view(nl, -1, 8)
     ox, oy, oz, dx, dy, dz, tl = (r[:, :, c:c + 1] for c in range(7))
-    at = tl.expand(nb, RB_SHARE, T_CLUSTER).clone()
+    at = tl.expand(nl, r.shape[1], T_CLUSTER).clone()
     ar = torch.full_like(at, -1, dtype=torch.int32)
     anyhit, tlim = r[:, :, 7] > 0.0, r[:, :, 6]
     count = list_counts(cand, dummy)
-    stop = torch.full((nb,), maxc, dtype=torch.int32, device=cand.device)
-    active = torch.ones((nb,), dtype=torch.bool, device=cand.device)
+    stop = torch.full((nl,), maxc, dtype=torch.int32, device=cand.device)
+    active = torch.ones((nl,), dtype=torch.bool, device=cand.device)
     for rnd in range(_live_rounds(cand, dummy)):
-        if rnd >= GROUP and (rnd - GROUP) % CHUNK == 0:
-            bt = at.amin(dim=2)                          # [nb, RB_SHARE]
+        if ctn is not None and rnd >= GROUP and (rnd - GROUP) % CHUNK == 0:
+            bt = at.amin(dim=2)                          # [lists, rays]
             useful = (ctn[:, rnd:rnd + 1] < bt) & ~(anyhit & (bt < tlim))
             fire = active & (rnd < count) & ~useful.any(dim=1)
             stop = torch.where(fire, rnd, stop)
@@ -191,24 +200,20 @@ def block_tiles_plain(cand, ctn, rays, tris):
     return at.view(-1, T_CLUSTER), ar.view(-1, T_CLUSTER), stop
 
 
-def list_tiles_plain(cand, rays, tris):
-    """Plain torch version of the per-ray kernel: a loop over rounds of
-    _mt8 on [rays, 128] tensors, each ray against its own tile."""
-    n, _ = cand.shape
-    ox, oy, oz, dx, dy, dz, tl = (rays[:, c:c + 1] for c in range(7))
-    at = tl.expand(n, T_CLUSTER).clone()
-    ar = torch.full_like(at, -1, dtype=torch.int32)
-    for rnd in range(_live_rounds(cand, tris.shape[0] - 1)):
-        tile = tris[cand[:, rnd].long()]                 # [n, 9, T]
-        planes = [tile[:, c, :] for c in range(9)]
-        t = _mt8(*planes, ox, oy, oz, dx, dy, dz, tl)
-        upd = t < at
-        at = torch.where(upd, t, at)
-        ar = torch.where(upd, rnd, ar)
-    return at, ar
+def block_tiles_plain(cand, ctn, rays, tris):
+    """Plain torch version of the block-shared kernel: the guarded walk
+    with RB_SHARE rays per list.  Returns (at, ar, stop)."""
+    return _walk(cand, ctn, rays, tris)
 
 
-def _check_tile_args(cand, rays, tris, rows: int):
+def list_tiles_plain(cand, ctn, rays, tris):
+    """Plain torch version of the per-ray kernel: the guarded walk with one
+    ray per list, so each ray runs its own guard.  Returns (at, ar,
+    stop)."""
+    return _walk(cand, ctn, rays, tris)
+
+
+def _check_tile_args(cand, rays, tris, rows: int, ctn=None):
     if cand.dtype != torch.int32 or rays.dtype != torch.float32 \
             or tris.dtype != torch.float32:
         raise TypeError("cand must be int32, rays and tris float32")
@@ -223,31 +228,38 @@ def _check_tile_args(cand, rays, tris, rows: int):
         raise ValueError(f"tris must be [K2+1, 9, 128], got {tuple(tris.shape)}")
     if not (cand.device == rays.device == tris.device):
         raise ValueError("cand, rays and tris must share a device")
+    if ctn is not None and (
+            ctn.dtype != torch.float32 or ctn.shape != cand.shape
+            or not ctn.is_contiguous() or ctn.device != cand.device):
+        raise ValueError("ctn must be contiguous float32 shaped like cand, "
+                         "on cand's device")
 
 
 def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch(name: str, cand, rays, tris, rows: int, grid: int, *extra,
-            entry=None):
+def _use_plain(name: str, cand, impl) -> bool:
+    if impl == "plain" or (impl is None and cand.device.type == "cpu"):
+        return True
+    if impl not in (None, "cuda"):
+        raise ValueError(f"bad impl {impl!r}")
     if not cand.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors")
-    lib = load_cuda_library()
-    at = torch.empty((rows, T_CLUSTER), dtype=torch.float32,
-                     device=cand.device)
-    ar = torch.empty((rows, T_CLUSTER), dtype=torch.int32, device=cand.device)
-    if grid == 0:
-        return at, ar
-    rc = getattr(lib, entry or f"srt_{name}")(
-        cand.data_ptr(), rays.data_ptr(), tris.data_ptr(), at.data_ptr(),
-        ar.data_ptr(), grid, cand.shape[1], tris.shape[0] - 1, *extra,
-        _stream(cand),
-    )
+    return False
+
+
+def _info(name: str, fn, *args) -> dict:
+    """A built kernel's registers and local (spill) bytes per thread,
+    threads per block and resident blocks and warps per SM."""
+    info = (ctypes.c_int * 5)()
+    rc = fn(*args, info)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
-    return at, ar
+        raise RuntimeError(f"{name}_info failed: CUDA error {rc}")
+    regs, local, blocks, threads, shared = info
+    return dict(registers=regs, local_bytes=local, threads=threads,
+                blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
+                shared_bytes=shared)
 
 
 def block_tiles(cand, ctn, rays, tris, impl=None):
@@ -257,15 +269,9 @@ def block_tiles(cand, ctn, rays, tris, impl=None):
     anyhit), tris f32 [K2+1, 9, 128] -> (at f32, ar i32 [nb*32, 128],
     stop i32 [nb]: the first round a block did not run, maxc if its guard
     never fired)."""
-    _check_tile_args(cand, rays, tris, cand.shape[0] * RB_SHARE)
-    if ctn.dtype != torch.float32 or ctn.shape != cand.shape \
-            or not ctn.is_contiguous() or ctn.device != cand.device:
-        raise ValueError("ctn must be contiguous float32 shaped like cand, "
-                         "on cand's device")
-    if impl == "plain" or (impl is None and cand.device.type == "cpu"):
+    _check_tile_args(cand, rays, tris, cand.shape[0] * RB_SHARE, ctn)
+    if _use_plain("block_tiles", cand, impl):
         return block_tiles_plain(cand, ctn, rays, tris)
-    if impl not in (None, "cuda"):
-        raise ValueError(f"bad impl {impl!r}")
     return block_tiles_cuda(cand, ctn, rays, tris)
 
 
@@ -299,37 +305,66 @@ def block_tiles_cuda(cand, ctn, rays, tris):
 
 
 def block_tiles_info() -> dict:
-    """The built block kernel's registers and local (spill) bytes per
-    thread, threads per block and resident blocks and warps per SM."""
-    info = (ctypes.c_int * 4)()
-    rc = load_cuda_library().srt_block_tiles_info(info)
-    if rc != 0:
-        raise RuntimeError(f"block_tiles_info failed: CUDA error {rc}")
-    regs, local, blocks, threads = info
-    return dict(registers=regs, local_bytes=local, threads=threads,
-                blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32)
+    """The built block kernel's registers, spill and occupancy."""
+    return _info("block_tiles", load_cuda_library().srt_block_tiles_info)
 
 
-def list_tiles(cand, rays, tris, impl=None, rays_per_block: int = 1):
-    """Per-ray list kernel.  cand i32 [B, maxc], rays f32 [B, 8],
-    tris f32 [K2+1, 9, 128] -> (at f32, ar i32) [B, 128].
-    ``rays_per_block`` (1, 8, 16 or 32) rays share a CUDA block; the main
-    path uses 1.  The outputs do not depend on it, so the plain version
-    ignores it."""
-    _check_tile_args(cand, rays, tris, cand.shape[0])
+def list_tiles(cand, ctn, rays, tris, impl=None, rays_per_block: int = 1):
+    """Per-ray list kernel with a tail guard per ray.  cand i32 [B, maxc]
+    (dummy id K2 = tris.shape[0]-1 marks empty slots), ctn f32 [B, maxc]
+    entry-t (ascending along a list), rays f32 [B, 8] (o3 d3 t_lim
+    anyhit), tris f32 [K2+1, 9, 128] -> (at f32, ar i32 [B, 128], stop
+    i32 [B]: the first round a ray did not run, maxc if its guard never
+    fired).  ``rays_per_block`` (1, 8, 16 or 32) rays share a CUDA block;
+    the main path uses 1.  The outputs do not depend on it, so the plain
+    version ignores it."""
+    _check_tile_args(cand, rays, tris, cand.shape[0], ctn)
     if rays_per_block not in LIST_RAYS_PER_BLOCK:
         raise ValueError(f"rays_per_block must be one of "
                          f"{LIST_RAYS_PER_BLOCK}, got {rays_per_block}")
-    if impl == "plain" or (impl is None and cand.device.type == "cpu"):
-        return list_tiles_plain(cand, rays, tris)
-    if impl not in (None, "cuda"):
-        raise ValueError(f"bad impl {impl!r}")
-    if rays_per_block == 1:
-        return _launch("list_tiles", cand, rays, tris, rays.shape[0],
-                       cand.shape[0])
-    return _launch("list_tiles", cand, rays, tris, rays.shape[0],
-                   cand.shape[0], rays_per_block,
-                   entry="srt_list_tiles_rays")
+    if _use_plain("list_tiles", cand, impl):
+        return list_tiles_plain(cand, ctn, rays, tris)
+    return list_tiles_cuda(cand, ctn, rays, tris, rays_per_block)
+
+
+def _list_outputs(n: int, device):
+    """Empty (at f32 [n, 128], ar i32 [n, 128], stop i32 [n])."""
+    at = torch.empty((n, T_CLUSTER), dtype=torch.float32, device=device)
+    ar = torch.empty((n, T_CLUSTER), dtype=torch.int32, device=device)
+    stop = torch.empty((n,), dtype=torch.int32, device=device)
+    return at, ar, stop
+
+
+def list_tiles_cuda(cand, ctn, rays, tris, rays_per_block: int = 1):
+    """Launch the per-ray kernel's instance for ``rays_per_block``.
+    Arguments as list_tiles, already checked."""
+    if not cand.is_cuda:
+        raise ValueError("list_tiles: the CUDA kernel needs CUDA tensors")
+    if tris.data_ptr() % 16:
+        raise ValueError("tris must be 16-byte aligned (cp.async)")
+    lib = load_cuda_library()
+    n, maxc = cand.shape
+    at, ar, stop = _list_outputs(n, cand.device)
+    if n == 0:
+        return at, ar, stop
+    rc = lib.srt_list_tiles(
+        cand.data_ptr(), ctn.data_ptr(), rays.data_ptr(), tris.data_ptr(),
+        at.data_ptr(), ar.data_ptr(), stop.data_ptr(), n, maxc,
+        tris.shape[0] - 1, rays_per_block, _stream(cand))
+    if rc != 0:
+        raise RuntimeError(f"list_tiles launch failed: CUDA error {rc}")
+    LAUNCHES["list_tiles"] += 1
+    return at, ar, stop
+
+
+def list_tiles_info(rays_per_block: int = 1) -> dict:
+    """The built per-ray kernel's registers, spill and occupancy at
+    ``rays_per_block``."""
+    if rays_per_block not in LIST_RAYS_PER_BLOCK:
+        raise ValueError(f"rays_per_block must be one of "
+                         f"{LIST_RAYS_PER_BLOCK}, got {rays_per_block}")
+    return _info("list_tiles", load_cuda_library().srt_list_tiles_info,
+                 rays_per_block)
 
 
 def _scene_bounds(scene: ClusterScene):
@@ -435,7 +470,8 @@ def _run_once(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int, any_hit,
             at, ar, _stop = block_tiles(cand_k.contiguous(), ctn, rg, tris,
                                         impl=impl)
         else:
-            at, ar = list_tiles(cand_k.contiguous(), rg, tris, impl=impl)
+            at, ar, _stop = list_tiles(cand_k.contiguous(), ctn, rg, tris,
+                                       impl=impl)
 
         # reduction tail: per-ray min over lanes; among lanes at the min
         # the smallest lane wins, then that lane's round (lane-major pack)

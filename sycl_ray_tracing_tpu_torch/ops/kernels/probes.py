@@ -5,8 +5,9 @@ probe_mosaic.py).  No program path calls them; the probe entry point
 (``python -m sycl_ray_tracing_tpu_torch.probes``) does.
 
 Kernels (csrc/probes.cu, CUDA C++ for sm_90a, -fmad=false):
-  * ``list_tiles_min``: the per-ray list kernel with the lane min inside,
-    one t per ray (kernel_shape_bench.py:90).
+  * ``list_tiles_min``: the first per-ray list kernel (one CUDA block per
+    ray, every live round, no tail guard) with the lane min inside, one t
+    per ray (kernel_shape_bench.py:90).
   * ``round_probe``: one synthetic list round per variant (tile gather,
     static gather, MT only, both; micro_copy.py:58) and sub-blocks per
     CUDA block (micro_super.py:47).
@@ -114,8 +115,9 @@ def _call(name: str, device, *args):
 # ---- list_tiles_min ---------------------------------------------------
 
 def list_tiles_min_plain(cand, rays, tris):
-    """Per-ray min over lanes of the per-ray kernel's at."""
-    return lt.list_tiles_plain(cand, rays, tris)[0].amin(dim=1)
+    """Per-ray min over lanes of the per-ray walk's at, over every live
+    round: this probe kernel runs no tail guard."""
+    return lt._walk(cand, None, rays, tris)[0].amin(dim=1)
 
 
 def list_tiles_min(cand, rays, tris, impl=None):

@@ -75,12 +75,13 @@ def rounds_run(cand, tris, stop=None) -> int:
 
 
 def block_tiles_work(cand, rays, tris, stop=None) -> tuple[float, float]:
-    """(operations, bytes) of block_tiles on these lists: the live rounds
-    before each block's ``stop`` (the tail guard's output; without it,
-    every live round, the unguarded kernel's work) and the tiles they
-    name.  With a stop, also the entry-t the guard reads (one per check:
-    c0 = GROUP + k*CHUNK up to the stop and below the list's count) and
-    the stop written."""
+    """(operations, bytes) of a guarded list walk on these lists (each
+    list shared by rays.shape[0] / cand.shape[0] rays: 32 for block_tiles,
+    1 for list_tiles): the live rounds before each list's ``stop`` (the
+    tail guard's output; without it, every live round, the unguarded
+    kernel's work) and the tiles they name.  With a stop, also the
+    entry-t the guard reads (one per check: c0 = GROUP + k*CHUNK up to
+    the stop and below the list's count) and the stop written."""
     dummy = tris.shape[0] - 1
     ran = _ran(cand, dummy, stop)
     rb = rays.shape[0] // cand.shape[0]
@@ -96,16 +97,17 @@ def block_tiles_work(cand, rays, tris, stop=None) -> tuple[float, float]:
     return ops, nbytes
 
 
-def list_tiles_work(cand, rays, tris) -> tuple[float, float]:
-    """(operations, bytes) of list_tiles (any rays_per_block)."""
-    dummy = tris.shape[0] - 1
-    live = int((cand != dummy).sum())                 # ray-rounds
-    ops = live * LANES * (EDGE_OPS + MT8_OPS)
-    out = rays.shape[0] * LANES * 8
-    return ops, _nbytes(cand) + _rays(rays) + _tiles(cand, dummy) + out
+def list_tiles_work(cand, rays, tris, stop=None) -> tuple[float, float]:
+    """(operations, bytes) of list_tiles (any rays_per_block): the live
+    ray-rounds before each ray's ``stop``, plus the entry-t each check
+    reads and the stop written (as block_tiles_work, one ray per list);
+    without a stop, every live ray-round."""
+    return block_tiles_work(cand, rays, tris, stop)
 
 
 def list_tiles_min_work(cand, rays, tris) -> tuple[float, float]:
+    """The unguarded per-ray walk with the lane min inside: every live
+    ray-round, one t per ray written."""
     ops, nbytes = list_tiles_work(cand, rays, tris)
     n = rays.shape[0]
     return ops + n * (LANES - 1), nbytes - n * LANES * 8 + n * 4

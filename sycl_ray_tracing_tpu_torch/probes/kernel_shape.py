@@ -1,7 +1,8 @@
 """Kernel-shape sweep on the card (counterpart of
-scratch/kernel_shape_bench.py): the per-ray list kernel at 1 / 8 / 16 /
-32 rays per CUDA block (the TPU kernel's RB) x maxc 16 / 32, the per-ray
-kernel with the lane min inside (one t per ray out), and the block-shared
+scratch/kernel_shape_bench.py): the per-ray list kernel (with its tail
+guard) at 1 / 8 / 16 / 32 rays per CUDA block (the TPU kernel's RB) x
+maxc 16 / 32, the unguarded per-ray kernel with the lane min inside (one
+t per ray out), and the block-shared
 kernel at maxc 48 / 96 on grouped lists; all on one all-live surface
 wavefront of 98,304 sorted rays over the 200k-triangle dragon stand-in.
 Reports ms and ns per ray.
@@ -43,15 +44,18 @@ def workload(scene) -> dict:
                                  scene.device)
     perm = torch.argsort(lt._ray_sort_key(cs, o, d), stable=True)
     o, d = o[perm], d[perm]
-    cand, _ctn, _of = candidate_clusters(cs, o, d, tl, LIST_MAXC)
+    cand, ctn, _of = candidate_clusters(cs, o, d, tl, LIST_MAXC)
     candg, ctng, _of, _cov = candidate_clusters_grouped(
         cs, o, d, tl, SHARE_MAXC, lt.RB_SHARE)
     return dict(k2=cs.num_clusters, rays=pack_rays(o, d, tl), cand=cand,
-                candg=candg, ctng=ctng, tris=lt._tiles_with_dummy(cs))
+                ctn=ctn, candg=candg, ctng=ctng,
+                tris=lt._tiles_with_dummy(cs))
 
 
 def per_ray_lists(work: dict, maxc: int):
-    return dummy_lists(work["cand"][:, :maxc], work["k2"])
+    """The per-ray lists cut at ``maxc`` and their entry-t: (cand, ctn)."""
+    return (dummy_lists(work["cand"][:, :maxc], work["k2"]),
+            work["ctn"][:, :maxc].contiguous())
 
 
 def block_lists(work: dict, maxc: int):
@@ -64,18 +68,21 @@ def run(scene, reps: int = 5, work: dict | None = None):
     work = work or workload(scene)
     rays, tris, k2 = work["rays"], work["tris"], work["k2"]
     for maxc in (16, 32):
-        cnd = per_ray_lists(work, maxc)
+        cnd, ctn = per_ray_lists(work, maxc)
+        stop = lt.list_tiles(cnd, ctn, rays, tris)[2]
         print(f"per-ray maxc={maxc:2d}: {live_rounds_mean(cnd, k2):.2f} live "
-              f"rounds per ray", flush=True)
+              f"rounds per ray, the guard runs "
+              f"{bounds.rounds_run(cnd, tris, stop)} of "
+              f"{bounds.rounds_run(cnd, tris)}", flush=True)
+        work_run = bounds.list_tiles_work(cnd, rays, tris, stop)
         for rb in lt.LIST_RAYS_PER_BLOCK:
-            ms = cuda_ms(lambda: lt.list_tiles(cnd, rays, tris,
+            ms = cuda_ms(lambda: lt.list_tiles(cnd, ctn, rays, tris,
                                                rays_per_block=rb), reps)
             print(f"per-ray rb={rb:2d} maxc={maxc:2d}: {ms:8.4f} ms "
-                  f"({ms * 1e6 / B:7.2f} ns/ray), "
-                  f"{bound_note(bounds.list_tiles_work(cnd, rays, tris))}",
+                  f"({ms * 1e6 / B:7.2f} ns/ray), {bound_note(work_run)}",
                   flush=True)
-    cnd = per_ray_lists(work, 32)
-    plain_line("per-ray maxc=32", lambda: lt.list_tiles_plain(cnd, rays,
+    cnd, ctn = per_ray_lists(work, 32)
+    plain_line("per-ray maxc=32", lambda: lt.list_tiles_plain(cnd, ctn, rays,
                                                               tris))
     ms = cuda_ms(lambda: pk.list_tiles_min(cnd, rays, tris), reps)
     print(f"per-ray rb= 1 mc=32 inkred: {ms:8.4f} ms "

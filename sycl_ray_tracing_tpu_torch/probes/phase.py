@@ -6,9 +6,10 @@ maxc 48), the per-ray kernel's cost law over list depth, the reduction
 tail, and the device-to-host copy rate of an f32 [98304, 128] tensor.
 
 The TPU script swept a GROUP guard (8 rounds, then one usefulness test,
-then the tail); the port's kernels have no guard yet, so each GROUP row
-is the unguarded launch at the same list depth, printed as a label on
-that launch's line.
+then the tail).  The port's per-ray kernel runs that guard per ray, at
+GROUP and then at every CHUNK, so each GROUP row is the guarded launch at
+the same list depth, printed as a label on that launch's line with the
+rounds the guard let run.
 
     python -m sycl_ray_tracing_tpu_torch.probes phase
 """
@@ -38,10 +39,10 @@ from sycl_ray_tracing_tpu_torch.probes.common import (
 
 B = 3 * 32768
 KERNEL_ROWS = {  # maxc: the TPU script's rows that this launch stands for
-    8: "8 rounds",
-    16: "16 rounds; TPU 8+guard+8",
-    32: "32 rounds; TPU 8+guard+24",
-    48: "TPU 8+guard+40",
+    8: "TPU 8 rounds; no check",
+    16: "TPU 8+guard+8; checks at 8",
+    32: "TPU 8+guard+24; checks at 8, 24",
+    48: "TPU 8+guard+40; checks at 8, 24, 40",
 }
 
 
@@ -74,7 +75,7 @@ def run(scene, reps: int = 5):
                                                     lt.RB_SHARE), reps)
     print(f"cand build shared mc=48:      {ms:8.3f} ms", flush=True)
 
-    cand, _ctn, _of = candidate_clusters(cs, o_s, d_s, tl, 48)
+    cand, ctn, _of = candidate_clusters(cs, o_s, d_s, tl, 48)
     nvalid = (cand >= 0).sum(dim=1).float()
     q = torch.quantile(nvalid, torch.tensor([0.5, 0.9, 0.99], device=dev))
     print(f"  per-ray candidates: mean {float(nvalid.mean()):.1f} "
@@ -85,17 +86,22 @@ def run(scene, reps: int = 5):
     tris = lt._tiles_with_dummy(cs)
     for maxc, label in KERNEL_ROWS.items():
         cnd = dummy_lists(cand[:, :maxc], k2)
+        ctn_m = ctn[:, :maxc].contiguous()
         live = live_rounds_mean(cnd, k2)
-        ms = cuda_ms(lambda: lt.list_tiles(cnd, rays, tris), reps)
+        stop = lt.list_tiles(cnd, ctn_m, rays, tris)[2]
+        ran = bounds.rounds_run(cnd, tris, stop)
+        ms = cuda_ms(lambda: lt.list_tiles(cnd, ctn_m, rays, tris), reps)
         print(f"kernel {maxc:2d} slots ({label}): {ms:8.4f} ms "
               f"({ms * 1e6 / B:7.2f} ns/ray, {live:.2f} live rounds, "
-              f"{ms * 1e6 / (B * max(live, 1e-9)):6.3f} ns/ray-round), "
-              f"{bound_note(bounds.list_tiles_work(cnd, rays, tris))}",
+              f"the guard runs {ran / B:.2f}, "
+              f"{ms * 1e6 / max(ran, 1):6.3f} ns/ray-round run), "
+              f"{bound_note(bounds.list_tiles_work(cnd, rays, tris, stop))}",
               flush=True)
-    plain_line("kernel 48 slots", lambda: lt.list_tiles_plain(cnd, rays,
-                                                              tris))
+    plain_line("kernel 48 slots", lambda: lt.list_tiles_plain(
+        cnd, ctn_m, rays, tris))
 
-    at, _ar = lt.list_tiles(dummy_lists(cand[:, :32], k2), rays, tris)
+    at, _ar, _stop = lt.list_tiles(dummy_lists(cand[:, :32], k2),
+                                   ctn[:, :32].contiguous(), rays, tris)
     ms = cuda_ms(lambda: reduction_tail(at), reps)
     print(f"reduction tail:               {ms:8.3f} ms", flush=True)
 

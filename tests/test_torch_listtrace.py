@@ -6,11 +6,12 @@ t within 1e-5, the golden-ray tolerance (tests/test_golden_rays.py:20) —
 XLA may contract the Möller–Trumbore products into FMAs where torch does
 not.  On CPU tensors every kernel wrapper runs its plain torch version.
 
-The block-shared kernel runs the TPU kernel's tail guard, which the JAX
-kernel in interpret mode skips: there an any-hit ray that is already
-blocked may keep a farther hit than the nearest, as on the TPU.  So with
-share=True, any-hit rays are held to what their callers read, "blocked"
-(packed >= 0) and certain (``_certain``); closest-hit rays stay exact."""
+Both list kernels run the TPU kernel's tail guard (the block kernel per
+block, the per-ray kernel per ray), which the JAX kernels in interpret
+mode skip: there an any-hit ray that is already blocked may keep a
+farther hit than the nearest, as on the TPU.  So any-hit rays are held to
+what their callers read, "blocked" (packed >= 0) and certain
+(``_certain``); closest-hit rays stay exact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,8 +44,8 @@ def mesh():
 
 
 def _compare_run(jout, pout, ah=None):
-    """_run's outputs equal JAX's.  ``ah``: the any-hit rays of a guarded
-    (share=True) run, held to blocked and certain only."""
+    """_run's outputs equal JAX's.  ``ah``: the any-hit rays, held to
+    blocked and certain only (the guard may stop them early)."""
     jt, jp, jr, jo = (np.asarray(x) for x in jout)
     pt, pp, pr, po = (x.numpy() for x in pout)
     assert bool(po) == bool(jo)
@@ -89,7 +90,7 @@ def test_run_matches_jax(mesh, case):
     pout = PL._run(pcs, torch.tensor(o), torch.tensor(d), torch.tensor(tl),
                    maxc, torch.tensor(ah), mask=torch.tensor(mask),
                    share=share, escalate=escalate)
-    hit = _compare_run(jout, pout, ah if share else None)
+    hit = _compare_run(jout, pout, ah)
     assert hit.any() and not hit[~mask].any()
     if escalate:
         # the main pass alone leaves uncertified rays: escalation ran
@@ -130,12 +131,8 @@ def test_multi_query_matches_jax(mesh, share):
     (jt, jp), (pt, pp) = jres[1], pres[1]             # occlusion
     blocked = np.asarray(jp) >= 0
     assert blocked.any() and not blocked.all()
+    # the guard may stop a blocked ray before its nearest hit: blocked only
     np.testing.assert_array_equal(pp.numpy() >= 0, blocked)
-    if not share:                                     # no guard: exact
-        np.testing.assert_array_equal(pp.numpy(), np.asarray(jp))
-        np.testing.assert_allclose(pt.numpy()[blocked],
-                                   np.asarray(jt)[blocked],
-                                   rtol=T_TOL, atol=T_TOL)
     jt, jprim = JL.packed_to_prim(jcs, *jres[0])
     pt, pprim = PL.packed_to_prim(pcs, *pres[0])
     np.testing.assert_array_equal(pprim.numpy(), np.asarray(jprim))
@@ -194,22 +191,32 @@ def test_wrappers_dispatch_on_device(mesh):
     assert torch.equal(at, at2) and torch.equal(ar, ar2)
     assert torch.equal(stop, stop2) and (stop == 16).all()
     lcand = cand.repeat_interleave(32, dim=0)
-    at3, ar3 = PL.list_tiles(lcand, rays, tiles)
+    lctn = ctn.repeat_interleave(32, dim=0)
+    at3, ar3, stop3 = PL.list_tiles(lcand, lctn, rays, tiles)
     # per-ray lists equal to the block's list give the block answer
     assert torch.equal(at3, at) and torch.equal(ar3, ar)
+    assert stop3.shape == (128,) and (stop3 == 16).all()
+    assert all(torch.equal(a, b) for a, b in zip(
+        PL.list_tiles_plain(lcand, lctn, rays, tiles), (at3, ar3, stop3)))
     assert PL.LAUNCHES == {"block_tiles": 0, "list_tiles": 0}
     with pytest.raises(ValueError):
         PL.block_tiles(cand, ctn, rays, tiles, impl="cuda")
     with pytest.raises(ValueError):
         PL.block_tiles_cuda(cand, ctn, rays, tiles)
     with pytest.raises(ValueError):
-        PL.list_tiles(lcand, rays, tiles, impl="triton")
+        PL.list_tiles(lcand, lctn, rays, tiles, impl="triton")
+    with pytest.raises(ValueError):
+        PL.list_tiles(lcand, lctn, rays, tiles, impl="cuda")
+    with pytest.raises(ValueError):
+        PL.list_tiles_cuda(lcand, lctn, rays, tiles)
+    with pytest.raises(ValueError):
+        PL.list_tiles(lcand, lctn[:, :8], rays, tiles)
     with pytest.raises(ValueError):
         PL.block_tiles(cand, ctn, rays[:64], tiles)
     with pytest.raises(ValueError):
         PL.block_tiles(cand, ctn[:, :8], rays, tiles)
     with pytest.raises(TypeError):
-        PL.list_tiles(lcand.long(), rays, tiles)
+        PL.list_tiles(lcand.long(), lctn, rays, tiles)
 
 
 def test_plain_kernel_round_rule():
@@ -221,7 +228,8 @@ def test_plain_kernel_round_rule():
     tiles[1, :, 5] = torch.tensor(tri.reshape(-1))  # the same triangle
     rays = torch.tensor([[0.2, 0.2, 0.0, 0.0, 0.0, -1.0, BIG_T, 0.0]])
     cand = torch.tensor([[2, 1, 0]], dtype=torch.int32)  # dummy first
-    at, ar = PL.list_tiles(cand, rays, tiles)
+    at, ar, stop = PL.list_tiles(cand, torch.zeros((1, 3)), rays, tiles)
+    assert int(stop[0]) == 3                 # maxc <= GROUP: no check
     assert float(at[0, 5]) == pytest.approx(2.0)
     assert int(ar[0, 5]) == 1                            # earliest round
     assert (ar[0, :5] == -1).all() and (at[0, :5] == BIG_T).all()

@@ -248,19 +248,33 @@ def _per_ray_pallas(w, rb, inkred):
     return np.asarray(at), np.asarray(ar)
 
 
+def _per_ray_vs_pallas(w, rb):
+    """The guarded per-ray kernel (plain version on CPU) at ``rb`` rays
+    per CUDA block against _list_kernel_impl in interpret mode at RB =
+    ``rb`` rays per grid step, which runs no guard, on each ray's list cut
+    at the port's stop.  Returns (at, ar, stop, count)."""
+    cnd = dummy_lists(w["cand"], w["k2"])
+    at, ar, stop = PL.list_tiles(cnd, w["ctn"].contiguous(), w["rays"],
+                                 w["tris"], rays_per_block=rb)
+    cut = torch.where(torch.arange(cnd.shape[1])[None] < stop[:, None],
+                      w["cand"], -1)
+    want_at, want_ar = _per_ray_pallas(dict(w, cand=cut), rb, inkred=False)
+    np.testing.assert_array_equal(ar.numpy(), want_ar)
+    np.testing.assert_allclose(at.numpy(), want_at, rtol=T_TOL, atol=T_TOL)
+    return at, ar, stop, PL.list_counts(cnd, w["k2"])
+
+
 @pytest.mark.parametrize("rb", [8, 16, 32])
 def test_list_tiles_rays_per_block_matches_pallas(wavefront, monkeypatch,
                                                   rb):
     """The per-ray kernel at the TPU's RB rays per grid step against the
-    port's per-ray kernel at as many rays per CUDA block."""
+    port's per-ray kernel at as many rays per CUDA block, on each ray's
+    list cut at the port's stop."""
     monkeypatch.setattr(JL, "RB", rb)
-    want_at, want_ar = _per_ray_pallas(wavefront, rb, inkred=False)
-    w = wavefront
-    at, ar = PL.list_tiles(dummy_lists(w["cand"], w["k2"]), w["rays"],
-                           w["tris"], rays_per_block=rb)
-    np.testing.assert_array_equal(ar.numpy(), want_ar)
-    np.testing.assert_allclose(at.numpy(), want_at, rtol=T_TOL, atol=T_TOL)
+    _at, ar, stop, count = _per_ray_vs_pallas(wavefront, rb)
     assert (ar >= 0).any()
+    fired = stop < count
+    assert ((stop[fired] - PL.GROUP) % PL.CHUNK == 0).all()
 
 
 def test_list_tiles_min_matches_pallas(wavefront, monkeypatch):
@@ -363,9 +377,11 @@ def guarded():
     perm = torch.argsort(PL._ray_sort_key(cs, o, d), stable=True)
     o, d, tl, ah = o[perm], d[perm], tl[perm], torch.tensor(ah)[perm]
     cand, ctn, _, _ = PC.candidate_clusters_grouped(cs, o, d, tl, 48, 32)
+    lcand, lctn, _ = PC.candidate_clusters(cs, o, d, tl, 48)
     rays = torch.cat([o, d, tl[:, None], ah[:, None].float()], dim=1)
     return dict(k2=cs.num_clusters, rays=rays.contiguous(), cand=cand,
-                ctn=ctn, tris=PL._tiles_with_dummy(cs))
+                ctn=ctn, lcand=lcand, lctn=lctn,
+                tris=PL._tiles_with_dummy(cs))
 
 
 def _winner(at, ar, tmin):
@@ -375,27 +391,15 @@ def _winner(at, ar, tmin):
                        1 << 30).amin(dim=1)
 
 
-def test_block_tiles_guard_matches_pallas_on_cut_lists(guarded):
-    """The guard fires on these lists, and what the guarded kernel computes
-    is the unguarded TPU kernel's answer on each list cut at the stop."""
-    g = guarded
-    stop, count = _block_vs_pallas(g["cand"].numpy(), g["ctn"].numpy(),
-                                   g["rays"], g["tris"], g["k2"])
-    assert (stop < count).any()
-    fired = stop < count
-    assert ((stop[fired] - PL.GROUP) % PL.CHUNK == 0).all()
-    assert (stop[~fired] == g["cand"].shape[1]).all()
-    # exact: a closest-hit ray keeps its nearest t and (lane, round) winner,
-    # an any-hit ray its "blocked"; the guard never fires with an entry-t
-    # of -inf and no any-hit flag
-    cnd = dummy_lists(g["cand"], g["k2"])
-    rays = g["rays"]
-    at, ar, _ = PL.block_tiles(cnd, g["ctn"], rays, g["tris"])
-    at0, ar0, stop0 = PL.block_tiles(
-        cnd, torch.full_like(g["ctn"], -float("inf")),
-        torch.cat([rays[:, :7], torch.zeros_like(rays[:, 7:])], 1),
-        g["tris"])
-    assert (stop0 == cnd.shape[1]).all()
+def _assert_guard_keeps_answers(kernel, cand, ctn, rays, tris):
+    """The guarded kernel against a run where the guard never fires
+    (entry-t -inf, no any-hit flag): a closest-hit ray keeps its nearest t
+    and (lane, round) winner, an any-hit ray its "blocked"."""
+    at, ar, _ = kernel(cand, ctn, rays, tris)
+    at0, ar0, stop0 = kernel(
+        cand, torch.full_like(ctn, -float("inf")),
+        torch.cat([rays[:, :7], torch.zeros_like(rays[:, 7:])], 1), tris)
+    assert (stop0 == cand.shape[1]).all()
     ah = rays[:, 7] > 0
     tmin, tmin0 = at.amin(dim=1), at0.amin(dim=1)
     assert torch.equal(tmin[~ah], tmin0[~ah])
@@ -405,22 +409,59 @@ def test_block_tiles_guard_matches_pallas_on_cut_lists(guarded):
     assert (tmin < rays[:, 6])[ah].any()
 
 
+def _assert_stops_at_chunk_starts(stop, count, maxc):
+    fired = stop < count
+    assert fired.any()
+    assert ((stop[fired] - PL.GROUP) % PL.CHUNK == 0).all()
+    assert (stop[~fired] == maxc).all()
+
+
+def test_block_tiles_guard_matches_pallas_on_cut_lists(guarded):
+    """The guard fires on these lists, and what the guarded kernel computes
+    is the unguarded TPU kernel's answer on each list cut at the stop."""
+    g = guarded
+    stop, count = _block_vs_pallas(g["cand"].numpy(), g["ctn"].numpy(),
+                                   g["rays"], g["tris"], g["k2"])
+    _assert_stops_at_chunk_starts(stop, count, g["cand"].shape[1])
+    _assert_guard_keeps_answers(PL.block_tiles, dummy_lists(g["cand"],
+                                                            g["k2"]),
+                                g["ctn"], g["rays"], g["tris"])
+
+
+def test_list_tiles_guard_matches_pallas_on_cut_lists(guarded, monkeypatch):
+    """The per-ray guard fires on these rays' own lists (maxc 48), each
+    ray stops only at a chunk start below its count, and what the guarded
+    kernel computes is the unguarded TPU kernel's answer on each list cut
+    at its stop."""
+    g = guarded
+    monkeypatch.setattr(JL, "RB", 8)
+    w = dict(g, cand=g["lcand"], ctn=g["lctn"])
+    _at, _ar, stop, count = _per_ray_vs_pallas(w, 8)
+    _assert_stops_at_chunk_starts(stop, count, g["lcand"].shape[1])
+    _assert_guard_keeps_answers(PL.list_tiles, dummy_lists(g["lcand"],
+                                                           g["k2"]),
+                                g["lctn"].contiguous(), g["rays"], g["tris"])
+
+
 def test_list_tiles_plain_grouping_is_invisible(wavefront):
     """list_tiles_plain run block by block, as the kernel at each
     rays_per_block walks the rays (the last block ragged, each block's
-    rounds only up to its own last live one), gives the same at / ar as
-    one call; so does the CPU wrapper at every rays_per_block."""
+    rounds only up to its own last live one), gives the same at / ar /
+    stop as one call, since the guard is per ray; so does the CPU wrapper
+    at every rays_per_block."""
     w = wavefront
     cand = dummy_lists(w["cand"], w["k2"])[:100].contiguous()
+    ctn = w["ctn"][:100].contiguous()
     rays = w["rays"][:100].contiguous()
-    at1, ar1 = PL.list_tiles_plain(cand, rays, w["tris"])
+    one = PL.list_tiles_plain(cand, ctn, rays, w["tris"])
     for k in PL.LIST_RAYS_PER_BLOCK[1:]:
-        parts = [PL.list_tiles_plain(cand[i:i + k], rays[i:i + k], w["tris"])
+        parts = [PL.list_tiles_plain(cand[i:i + k], ctn[i:i + k],
+                                     rays[i:i + k], w["tris"])
                  for i in range(0, cand.shape[0], k)]
-        assert torch.equal(torch.cat([p[0] for p in parts]), at1)
-        assert torch.equal(torch.cat([p[1] for p in parts]), ar1)
-        at, ar = PL.list_tiles(cand, rays, w["tris"], rays_per_block=k)
-        assert torch.equal(at, at1) and torch.equal(ar, ar1)
+        for j in range(3):
+            assert torch.equal(torch.cat([p[j] for p in parts]), one[j])
+        out = PL.list_tiles(cand, ctn, rays, w["tris"], rays_per_block=k)
+        assert all(torch.equal(a, b) for a, b in zip(out, one))
 
 
 # ---- wrappers, bounds, workloads --------------------------------------
@@ -448,7 +489,10 @@ def test_probe_wrappers_dispatch_on_device(wavefront):
     with pytest.raises(TypeError):
         PK.round_probe(mr["cand"].long(), mr["tris"], "dynmt")
     with pytest.raises(ValueError):
-        PL.list_tiles(cand, w["rays"], w["tris"], rays_per_block=4)
+        PL.list_tiles(cand, w["ctn"], w["rays"], w["tris"],
+                      rays_per_block=4)
+    with pytest.raises(ValueError):
+        PL.list_tiles_info(rays_per_block=4)
     mo = feature_smoke.mosaic_inputs("cpu")
     with pytest.raises(ValueError):
         PK.mosaic_probe(mo["ns"], mo["cand"], mo["x"], "loop")
@@ -487,6 +531,14 @@ def test_bounds_count_live_work():
     assert ops == 29 * per_round
     # block 0 checks at 8 and 24 (fired), block 1 (count 5) never checks
     assert nbytes == by_all + 2 * 4 + 2 * 4
+    # the per-ray kernel: the same rounds and checks, one ray per list
+    ops_l, by_l = bounds.list_tiles_work(long, rays2[:2], tris2, stop)
+    ops_l_all, by_l_all = bounds.list_tiles_work(long, rays2[:2], tris2)
+    assert ops_l == 29 * T * (bounds.EDGE_OPS + bounds.MT8_OPS)
+    assert ops_l_all == 35 * T * (bounds.EDGE_OPS + bounds.MT8_OPS)
+    assert by_l == by_l_all + 2 * 4 + 2 * 4
+    assert by_l_all == (2 * 32 * 4 + 2 * 7 * 4 + 3 * bounds.TILE_BYTES
+                        + 2 * T * 8)
     ms, by = bounds.bound(67e9, 0)
     assert by == "operations" and ms == pytest.approx(1.0)
     assert bounds.bound(0, 3.35e9) == (pytest.approx(1.0), "bytes")

@@ -43,6 +43,24 @@ Phases (any failure exits non-zero):
      kernels, also against the scripts' closed forms), then every probe
      sweep once (python -m sycl_ray_tracing_tpu_torch.probes), with the
      probe kernels' launch counters reset just before.
+  6. The 870k-triangle frame, whose main passes take the supercluster-
+     prefiltered candidate build (K2 above 2*maxs*64 clusters): the scene
+     (K2, K1, the SAH build's wall time, the tables' bytes); on the
+     bounce-1 fused launch's hierarchical lists, block_tiles' (at, ar,
+     stop) bit for bit against its plain version (poisoned SC-overflow
+     lists among them, or else a launch built with a smaller maxs that
+     has some) and _run's (t, packed, resolved, overflow) against the
+     plain versions; the same rays' hierarchical lists against the dense
+     build on the lists without SC overflow (the same live counts, the
+     same candidates on lists that fit, entry-t within the id-bit
+     quantization); the frame warm (overflow False, finite, both launch
+     counters above 0, peak memory under 20 GB) with its time, launches,
+     each list kernel's event and device time and bound per frame, the
+     poisoned lists and escalation rays per launch; the largest escalation
+     list_tiles launch bit for bit; one profiled frame (probes/frame.py,
+     with the top device ops) and each candidate build's device time over
+     a frame; certified closest hits against the brute-force oracle on a
+     ray subset.
 
 The second-to-last lines are the card line and one JSON object describing
 each kernel (time, plain version's time, launches, and the bound: the
@@ -60,8 +78,11 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 SEED = 0
 N_TRIS = 200_000
+N_TRIS_BIG = 870_000   # the reference's pbrt_dragon size (bench.py:237-258)
+PEAK_LIMIT = 20 << 30  # bytes of device memory the 870k frame may peak at
 W = H = 512
 BOUNCES = 8
 TILE = 32768
@@ -72,7 +93,8 @@ LIST_REPLACES = "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:245"
 
 
 def log(msg: str):
-    print(msg, flush=True)
+    """One output line, led by the seconds since the script started."""
+    print(f"[{time.perf_counter() - T_START:6.1f} s] {msg}", flush=True)
 
 
 class Capture:
@@ -166,6 +188,32 @@ class LaunchTimer:
             out[name] = (n + 1, ms + start.elapsed_time(end),
                          h_ms + host * 1e3, bms + b_ms)
         return out
+
+
+class RunWatch:
+    """Per _run call of a render: its rays, live rays, and live rays left
+    uncertified (those make the honest overflow flag)."""
+
+    def __init__(self, lt):
+        self.lt = lt
+        self.calls = []
+
+    def __enter__(self):
+        self._orig = self.lt._run
+
+        def hook(scene, o, d, tl, maxc, any_hit, **kw):
+            out = self._orig(scene, o, d, tl, maxc, any_hit, **kw)
+            mask = kw.get("mask")
+            live = out[2].new_ones(out[2].shape) if mask is None else mask
+            left = live & ~self.lt._certain(any_hit, out[1], out[2])
+            self.calls.append((o.shape[0], int(live.sum()), int(left.sum())))
+            return out
+
+        self.lt._run = hook
+        return self
+
+    def __exit__(self, *exc):
+        self.lt._run = self._orig
 
 
 def max_abs_err(a, b) -> float:
@@ -331,6 +379,218 @@ def kernel_entry(name, source, replaces, ms, plain_ms, work, err, bounds):
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 ops=ops, bytes=nbytes)
+
+
+def big_frame_phase(kernels, card, cam, cfg, key, tile_key, px0, py0):
+    """Phase 6: the 870k-triangle frame through the supercluster build
+    (see the module docstring).  Adds each list kernel's per-frame numbers
+    to its kernels entry."""
+    import torch
+
+    from sycl_ray_tracing_tpu_torch.models import pathtracer as pt
+    from sycl_ray_tracing_tpu_torch.ops import cluster as pc
+    from sycl_ray_tracing_tpu_torch.ops.intersect import (
+        BIG_T,
+        intersect_triangles,
+    )
+    from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as lt
+    from sycl_ray_tracing_tpu_torch.probes import bounds, frame
+    from sycl_ray_tracing_tpu_torch.utils.procedural import dragon_scene
+
+    t6 = time.perf_counter()
+    scene = dragon_scene(N_TRIS_BIG, with_sky=True, build_accel=False,
+                         device=px0.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = scene.build_acceleration()
+    torch.cuda.synchronize()
+    sah_s = time.perf_counter() - t0
+    cs = scene.clusters
+    k2, k1 = cs.num_clusters, cs.num_superclusters
+    tables = [getattr(cs, f) for f in pc.CLUSTER_FIELDS] + [scene.slot_packed]
+    nbytes = sum(t.numel() * t.element_size() for t in tables)
+    maxc = lt.DEFAULT_MAXC_SHARE
+    maxs = max(lt.HIER_MAXS, maxc // 3)
+    cols = maxs * pc.S_CLUSTER
+    bits_h, bits_d = pc._id_bits(cols), pc._id_bits(k2)
+    log(f"phase 6 scene: {scene.num_triangles} triangles, K2 {k2} clusters, "
+        f"K1 {k1} superclusters; SAH build and tables {sah_s:.1f} s wall; "
+        f"cluster and slot tables {nbytes / 2**20:.1f} MiB on the card; "
+        f"main passes: supercluster build, maxs {maxs}, C {cols} columns "
+        f"({bits_h} id bits); escalation: dense over {k2} ({bits_d} id bits)")
+    if k2 <= 2 * maxs * pc.S_CLUSTER:
+        raise RuntimeError("the 870k scene does not take the supercluster "
+                           "build")
+
+    # the bounce-1 fused launch's hierarchical lists, kernels vs plain
+    with Capture(lt) as cap:
+        pt.render_rays(scene, cam, px0, py0, W, H, tile_key, 1, 1)
+    torch.cuda.synchronize()
+    tris = lt._tiles_with_dummy(cs)
+    bounce = max(cap.tiles["block_tiles"], key=lambda c: c[-1].shape[0])
+    cand_k, ctn, rays = bounce
+    poisoned = ctn[:, -1] < 0
+    chunks = len(list(pc._row_chunks(rays.shape[0], cols, lt.RB_SHARE)))
+    log(f"phase 6 bounce-1 fused launch: {rays.shape[0]} rays, "
+        f"{live_note(cand_k, tris)}; {int(poisoned.sum())} of "
+        f"{cand_k.shape[0]} lists poisoned (SC overflow); the build ran in "
+        f"{chunks} row chunks")
+    _stop, err, _early = hold_tiles(lt, "block_tiles", bounce, tris,
+                                    "phase 6 block_tiles bounce-1 launch "
+                                    "(hierarchical lists)")
+    if not bool(poisoned.any()):
+        small = 4
+        c2, t2, _of, _cov = pc.candidate_clusters_hier(
+            cs, rays[:, 0:3], rays[:, 3:6], rays[:, 6], maxc, small,
+            lt.RB_SHARE, grouped=True, ray_cert=True)
+        n2 = int((t2[:, -1] < 0).sum())
+        if not n2:
+            raise RuntimeError(f"maxs {small} poisoned no list either")
+        launch = (torch.where(c2 >= 0, c2, k2).to(torch.int32).contiguous(),
+                  t2.contiguous(), rays)
+        _s, e2, _e = hold_tiles(lt, "block_tiles", launch, tris,
+                                f"phase 6 block_tiles at maxs {small} "
+                                f"({n2} poisoned lists)")
+        err = max(err, e2)
+    o, d, tl, mc, ah, kw = cap.runs[1]
+    outs = [lt._run(cs, o, d, tl, mc, ah, **dict(kw, impl=impl))
+            for impl in (None, "plain")]
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    log(f"phase 6 _run bounce 1 fused: rays {o.shape[0]}, (t, packed, "
+        f"resolved, overflow) identical={same}, overflow={bool(outs[0][3])}")
+    if not same:
+        raise RuntimeError("_run at 870k differs between kernels and plain "
+                           "versions")
+
+    # the same rays' hierarchical lists against the dense build
+    dc, dt, _dof, _dcov = pc.candidate_clusters_grouped(
+        cs, rays[:, 0:3], rays[:, 3:6], rays[:, 6], maxc, lt.RB_SHARE)
+    hc = torch.where(cand_k != k2, cand_k, -1)
+    ok = ~poisoned
+    counts = torch.equal((hc >= 0).sum(1)[ok], (dc >= 0).sum(1)[ok])
+    fits = ok & (dc[:, -1] < 0)
+    sets = torch.equal(hc[fits].sort(1).values, dc[fits].sort(1).values)
+    live = (dc >= 0) & ok[:, None]
+    quantum = 2.0 ** (max(bits_h, bits_d) - 23)
+    near = bool(((ctn - dt).abs()[live]
+                 <= quantum * torch.maximum(ctn, dt)[live]).all())
+    same_rows = int((hc == dc).all(1)[ok].sum())
+    log(f"phase 6 hierarchical vs dense lists on {int(ok.sum())} lists "
+        f"without SC overflow: live counts equal={counts}; the same "
+        f"candidates on the {int(fits.sum())} lists that fit={sets}; "
+        f"entry-t within 2^{max(bits_h, bits_d) - 23} relative={near}; "
+        f"{same_rows} lists identical slot for slot (the others differ "
+        f"in order only among entry-t equal on the coarser key grid, or at "
+        f"a full list's cut)")
+    if not (counts and sets and near):
+        raise RuntimeError("the hierarchical lists disagree with the dense "
+                           "build")
+
+    # certified closest hits against the brute-force oracle
+    o, d = cap.runs[0][0][::256], cap.runs[0][1][::256]
+    t_l, prim_l, _of, res = lt.closest_hit(cs, o, d, with_resolved=True)
+    refs = [intersect_triangles(o[i:i + 32], d[i:i + 32], scene.triangles)
+            for i in range(0, o.shape[0], 32)]
+    ref_hit = torch.cat([r.hit for r in refs])
+    ref_prim = torch.cat([r.prim for r in refs]).to(prim_l.dtype)
+    ref_t = torch.cat([r.t for r in refs])
+    hr = ref_hit & res
+    agree = (torch.equal((prim_l >= 0)[res], ref_hit[res])
+             and torch.equal(prim_l[hr], ref_prim[hr])
+             and bool(((t_l - ref_t).abs()[hr] <= 1e-5).all()))
+    log(f"phase 6 oracle: {o.shape[0]} primary rays, {int(res.sum())} "
+        f"certified, {int(ref_hit.sum())} hits, agree={agree}")
+    if not agree:
+        raise RuntimeError("the 870k list tracer disagrees with the oracle")
+
+    # the frame: a first one with every _run call's uncertified rays
+    # counted, then one timed warm with the launch counters reset before
+    t0 = time.perf_counter()
+    with RunWatch(lt) as watch:
+        pt.render(scene, cam, cfg, key, with_aux=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    left = [(i, b, n, k) for i, (b, n, k) in enumerate(watch.calls) if k]
+    lt.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    img, aux = pt.render(scene, cam, cfg, key, with_aux=True)
+    torch.cuda.synchronize()
+    frame_s = time.perf_counter() - t0
+    launches = dict(lt.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(img).all())
+    mean = float(img.mean())
+    log(f"phase 6 frame: {tuple(img.shape)} finite={finite} mean={mean:.6f} "
+        f"overflow={aux['overflow']} launches={launches}; {len(watch.calls)} "
+        f"list-tracer passes, uncertified live rays left in "
+        f"{len(left)} of them {left[:8]}")
+    log(f"phase 6 frame time {frame_s * 1e3:.1f} ms warm ({first_s * 1e3:.1f} "
+        f"ms for the counted frame before it), "
+        f"{W * H * BOUNCES / frame_s / 1e6:.3f} Mrays/s ({W}x{H}x1spp "
+        f"x{BOUNCES} bounces / frame time); peak device memory "
+        f"{peak / 2**30:.2f} GiB (max_memory_allocated), card {card}")
+    if not finite or mean <= 1e-4 or aux["overflow"] \
+            or tuple(img.shape) != (H, W, 3):
+        raise RuntimeError("the 870k frame failed its checks")
+    if min(launches.values()) < 1:
+        raise RuntimeError(f"a kernel of the 870k path never launched: "
+                           f"{launches}")
+    if peak > PEAK_LIMIT:
+        raise RuntimeError(f"the 870k frame peaked at {peak} bytes")
+
+    # one more frame, every list-kernel launch timed and bounded, its
+    # candidate builds recorded and replayed under the profiler
+    with LaunchTimer(lt) as timer:
+        builds = frame.build_ms(lambda: pt.render(scene, cam, cfg, key))
+    per_frame = timer.per_kernel(bounds)
+    blocks = [a for n, _s, _e, _h, a in timer.launches if n == "block_tiles"]
+    esc = [a for n, _s, _e, _h, a in timer.launches if n == "list_tiles"]
+    n_poisoned = [int((a[1][:, -1] < 0).sum()) for a in blocks]
+    n_chunks = [len(list(pc._row_chunks(a[2].shape[0], cols, lt.RB_SHARE)))
+                for a in blocks]
+    redo = [int((a[2][:, 6] > -BIG_T).sum()) for a in esc]
+    log(f"phase 6 poisoned (SC-overflow) lists per block_tiles launch: "
+        f"{n_poisoned} (sum {sum(n_poisoned)} of "
+        f"{sum(a[0].shape[0] for a in blocks)} lists); the build's row "
+        f"chunks per launch: {n_chunks} (sum {sum(n_chunks)})")
+    log(f"phase 6 escalation rays per list_tiles launch: {redo} (sum "
+        f"{sum(redo)})")
+    cand, ctn_e, rays_e, tris_e, stop = max(esc, key=lambda a: a[0].shape[0])
+    want, e3, _early = hold_tiles(lt, "list_tiles", (cand, ctn_e, rays_e),
+                                  tris_e, "phase 6 list_tiles largest "
+                                  "escalation launch of the frame")
+    if not torch.equal(stop, want):
+        raise RuntimeError("the frame's list_tiles stop differs from the "
+                           "plain version's")
+
+    prof = frame.profile(lambda: pt.render(scene, cam, cfg, key))
+    for entry in kernels[:2]:
+        name = entry["name"]
+        n, ms, h_ms, b_ms = per_frame[name]
+        pn, dev_ms, top = prof["kernels"][f"{name}_kernel"]
+        log(f"phase 6 per frame {name}: {n} launches, {ms:.4f} ms kernel "
+            f"(CUDA events around each launch), {dev_ms:.4f} ms device "
+            f"time ({pn} launches, the longest {top:.4f} ms; profiler), "
+            f"{b_ms:.4f} ms sum of per-launch bounds, {h_ms:.4f} ms on the "
+            f"host clock inside the wrapper ({card})")
+        entry["frame_870k"] = dict(launches=launches[name], ms=ms,
+                                   device_ms=dev_ms, bound_ms=b_ms)
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   err if name == "block_tiles" else e3)
+    for line in frame.report(prof, "phase 6 profiled 870k", card) + \
+            frame.build_report(builds, "phase 6 candidate build", card):
+        log(line)
+    build_dev = sum(ms for _n, ms in builds.values())
+    kern_dev = sum(prof["kernels"][k][1] for k in prof["kernels"])
+    rest = prof["device_ms"] - build_dev - kern_dev
+    log(f"phase 6 device time per frame: candidate builds {build_dev:.1f} "
+        f"ms, list kernels {kern_dev:.1f} ms, everything else (RNG, "
+        f"shading, sorts, reduction tails) {rest:.1f} ms of "
+        f"{prof['device_ms']:.1f} ms; host wall "
+        f"{prof['wall_ms']:.1f} ms under the profiler, {frame_s * 1e3:.1f} "
+        f"ms without ({card})")
+    log(f"phase 6 took {time.perf_counter() - t6:.1f} s, card {card}")
 
 
 def main() -> int:
@@ -709,8 +969,12 @@ def main() -> int:
             f"({t5h - t5:.1f} s checks, {time.perf_counter() - t5h:.1f} s "
             f"sweeps), card {card}")
 
+        # ---- phase 6: the 870k-triangle frame ----
+        big_frame_phase(kernels, card, cam, cfg, key, tile_key, px0, py0)
+
     for k in kernels:
         del k["ops"], k["bytes"]
+    log(f"chip_smoke took {time.perf_counter() - T_START:.1f} s, card {card}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

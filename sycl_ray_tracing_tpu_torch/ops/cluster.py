@@ -1,21 +1,26 @@
-"""Clustered geometry and the exact candidate-list build for the list tracer
+"""Clustered geometry and the candidate-list builds for the list tracer
 (counterpart of sycl_ray_tracing_tpu/ops/cluster.py).
 
 Triangles are grouped into clusters of T_CLUSTER=128 (SAH leaf order, or
 Morton order on request) and superclusters of S_CLUSTER=64; the tables
 are built in numpy exactly as the JAX package builds them.
 
-The candidate build is plain torch (it is XLA, not Pallas, in the JAX
-package): a dense [rays, K2] slab test, the EXACT nearest-first
-extraction (packed quantized-entry-t | cluster-id keys, sorted), and the
-per-ray membership certificate.  Every step is row-local, so the build
-runs in row chunks to bound the [rows, K2] transients; chunking does not
-change any result.
+The candidate builds are plain torch (they are XLA, not Pallas, in the
+JAX package):
+  * the dense builds (``candidate_clusters``, ``_grouped``): a [rays, K2]
+    slab test, the EXACT nearest-first extraction (packed quantized-entry-t
+    | cluster-id keys, sorted) and the per-ray membership certificate;
+  * the supercluster-prefiltered build (``candidate_clusters_hier``) for
+    scenes above 2*maxs*64 clusters: a [rays, K1] supercluster slab test,
+    the threshold-min extraction of each block's ``maxs`` nearest
+    superclusters, then the same exact extraction over the C = maxs*64
+    child boxes of those superclusters only.
+Every step is row-local (block-local), so each build runs in row chunks
+to bound its [rows, columns] transients; chunking does not change any
+result.
 
-Not ported here (NotImplementedError at the caller): the supercluster
-prefiltered build ``candidate_clusters_hier`` and the threshold-min
-``_extract_candidates`` it uses, and the approximate-recall extraction
-(every list-tracer pass asks for exact extraction).
+Left out: the approximate-recall extraction (every list-tracer pass asks
+for exact extraction).
 """
 
 from __future__ import annotations
@@ -53,6 +58,10 @@ class ClusterScene:
     @property
     def num_clusters(self) -> int:
         return self.cl_tris.shape[0]
+
+    @property
+    def num_superclusters(self) -> int:
+        return self.sc_box.shape[0]
 
     def with_list_maxc(self, maxc: int) -> "ClusterScene":
         return dataclasses.replace(self, list_maxc=maxc)
@@ -200,17 +209,16 @@ def inv_dir(ray_d):
     return sign / torch.clamp_min(torch.abs(ray_d), 1e-30)
 
 
-def dense_box_mask(boxes, ray_o, inv_d, t_lim):
-    """Slab-test boxes [K,8] against rays: (hit [B,K], tnear [B,K])
-    (cluster.py:474-493)."""
-    ox, oy, oz = ray_o[:, 0:1], ray_o[:, 1:2], ray_o[:, 2:3]
-    ix, iy, iz = inv_d[:, 0:1], inv_d[:, 1:2], inv_d[:, 2:3]
-    x0 = (boxes[None, :, 0] - ox) * ix                 # [B,K]
-    y0 = (boxes[None, :, 1] - oy) * iy
-    z0 = (boxes[None, :, 2] - oz) * iz
-    x1 = (boxes[None, :, 3] - ox) * ix
-    y1 = (boxes[None, :, 4] - oy) * iy
-    z1 = (boxes[None, :, 5] - oz) * iz
+def _slab_test(box, ray_o, inv_d, t_lim):
+    """The slab test on broadcastable operands: ``box`` the six planes
+    (min x, y, z, max x, y, z), ``ray_o`` and ``inv_d`` three axes each,
+    ``t_lim`` the rays' limit.  Returns (hit, tnear)."""
+    x0 = (box[0] - ray_o[0]) * inv_d[0]
+    y0 = (box[1] - ray_o[1]) * inv_d[1]
+    z0 = (box[2] - ray_o[2]) * inv_d[2]
+    x1 = (box[3] - ray_o[0]) * inv_d[0]
+    y1 = (box[4] - ray_o[1]) * inv_d[1]
+    z1 = (box[5] - ray_o[2]) * inv_d[2]
     tnear = torch.maximum(
         torch.maximum(torch.minimum(x0, x1), torch.minimum(y0, y1)),
         torch.minimum(z0, z1),
@@ -219,8 +227,16 @@ def dense_box_mask(boxes, ray_o, inv_d, t_lim):
         torch.minimum(torch.maximum(x0, x1), torch.maximum(y0, y1)),
         torch.maximum(z0, z1),
     )
-    hit = (tnear <= tfar) & (tfar > EPS) & (tnear < t_lim[:, None])
+    hit = (tnear <= tfar) & (tfar > EPS) & (tnear < t_lim)
     return hit, tnear
+
+
+def dense_box_mask(boxes, ray_o, inv_d, t_lim):
+    """Slab-test boxes [K,8] against rays: (hit [B,K], tnear [B,K])
+    (cluster.py:474-493)."""
+    return _slab_test([boxes[None, :, c] for c in range(6)],
+                      [ray_o[:, a:a + 1] for a in range(3)],
+                      [inv_d[:, a:a + 1] for a in range(3)], t_lim[:, None])
 
 
 def _id_bits(ncols: int) -> int:
@@ -229,19 +245,41 @@ def _id_bits(ncols: int) -> int:
     return max(11, (ncols - 1).bit_length())
 
 
-def pack_keys(tnear, id_bits: int):
-    """THE key packing, shared by extraction and the membership
-    certificate: entry-t clipped to [0, 1e30], its float bits with the low
+def pack_keys(tnear, id_bits: int, t_max: float = 1e30):
+    """THE key packing, shared by both extractions and the membership
+    certificate: entry-t clipped to [0, t_max], its float bits with the low
     ``id_bits`` cleared (rounding entry-t DOWN, which is conservative
     wherever it is consumed), OR the column id.  Non-negative float bits
     order like the floats, and the id bits make keys unique per row.
-    (The JAX package adds a +2^23 bias before its float-domain top-k; an
-    integer sort needs none.)"""
+    The exact extraction clips at 1e30, as the JAX package's top-k does
+    (its +2^23 bias before a float-domain top-k is not needed by an
+    integer sort); its threshold-min extraction clips only at 0, so
+    ``t_max=inf`` reproduces it.  The two keys differ only where a hit
+    box's entry-t exceeds 1e30.  torch keeps the sign of -0.0 through a
+    clamp where XLA gives +0.0, so ``abs`` clears it: the key of an entry-t
+    of -0.0 is that of 0."""
     id_mask = (1 << id_bits) - 1
-    tbits = torch.clamp(tnear, 0.0, 1e30).view(torch.int32)
+    tbits = torch.clamp(tnear, 0.0, t_max).abs().view(torch.int32)
     ids = torch.arange(tnear.shape[-1], dtype=torch.int32,
                        device=tnear.device)
     return (tbits & ~id_mask) | ids
+
+
+def _unpack(kv, id_mask: int):
+    """Sorted keys -> (cand, -1 where dead; ctn, BIG_T where dead; alive)."""
+    alive = kv < _DEAD
+    cand = torch.where(alive, kv & id_mask, -1)
+    ctn = torch.where(alive, (kv & ~id_mask).view(torch.float32), BIG_T)
+    return cand, ctn, alive
+
+
+def _pad_cols(kv, maxc: int):
+    """A row's first maxc sorted keys, dead keys past its columns."""
+    if kv.shape[1] >= maxc:
+        return kv[:, :maxc]
+    return torch.cat([kv, torch.full((kv.shape[0], maxc - kv.shape[1]), _DEAD,
+                                     dtype=torch.int32, device=kv.device)],
+                     dim=1)
 
 
 def extract_candidates(hit, tnear, maxc: int):
@@ -253,19 +291,10 @@ def extract_candidates(hit, tnear, maxc: int):
     Rows that come back short (fewer kept than min(count, maxc)) are
     poisoned: last cand -> 0 if empty, last ctn -> -BIG_T.  With exact
     extraction that never happens, but the rule is kept as in JAX."""
-    R, ncols = hit.shape
-    id_bits = _id_bits(ncols)
-    id_mask = (1 << id_bits) - 1
+    id_bits = _id_bits(hit.shape[1])
     rem = torch.where(hit, pack_keys(tnear, id_bits), _DEAD)
-    k = min(maxc, ncols)
-    kv = torch.sort(rem, dim=1).values[:, :k]
-    if k < maxc:
-        kv = torch.cat(
-            [kv, torch.full((R, maxc - k), _DEAD, dtype=torch.int32,
-                            device=kv.device)], dim=1)
-    alive = kv < _DEAD
-    cand = torch.where(alive, kv & id_mask, -1)
-    ctn = torch.where(alive, (kv & ~id_mask).view(torch.float32), BIG_T)
+    kv = _pad_cols(torch.sort(rem, dim=1).values, maxc)
+    cand, ctn, alive = _unpack(kv, (1 << id_bits) - 1)
     count = hit.sum(dim=1)
     got = alive.sum(dim=1)
     short = got < torch.clamp_max(count, maxc)
@@ -273,6 +302,28 @@ def extract_candidates(hit, tnear, maxc: int):
     cand[:, -1] = torch.where(over & (cand[:, -1] < 0), 0, cand[:, -1])
     ctn[:, -1] = torch.where(short, -BIG_T, ctn[:, -1])
     return cand, ctn, over.any()
+
+
+def extract_candidates_min(hit, tnear, maxc: int):
+    """THRESHOLD-MIN extraction (_extract_candidates, cluster.py:519-570),
+    which the supercluster build uses for each block's supercluster list.
+
+    (hit [R,K], tnear [R,K]) -> (cand [R,maxc] i32 column ids, -1 empty;
+    ctn [R,maxc] f32 entry-t, BIG_T empty; overflow bool tensor: a live
+    key is left after the maxc kept).  The JAX package takes maxc
+    dependent rounds, each the least key above the last one; keys are
+    unique per row, so the first maxc keys of one sort are the same keys
+    in the same order.  Its keys clip entry-t at 0 only (pack_keys'
+    ``t_max=inf``), and no row is poisoned."""
+    id_bits = _id_bits(hit.shape[1])
+    rem = torch.where(hit, pack_keys(tnear, id_bits, float("inf")), _DEAD)
+    kv = torch.sort(rem, dim=1).values
+    if kv.shape[1] > maxc:
+        over = (kv[:, maxc] < _DEAD).any()
+    else:
+        over = torch.zeros((), dtype=torch.bool, device=kv.device)
+    cand, ctn, _alive = _unpack(_pad_cols(kv, maxc), (1 << id_bits) - 1)
+    return cand, ctn, over
 
 
 def membership_cert(hit, tn_blk, cand, ctn, group: int):
@@ -350,3 +401,107 @@ def candidate_clusters_grouped(scene: ClusterScene, ray_o, ray_d, t_lim,
         ctns.append(t)
         ovf = ovf | o
     return torch.cat(cands), torch.cat(ctns), ovf, torch.cat(covs)
+
+
+def candidate_clusters_hier(scene: ClusterScene, ray_o, ray_d, t_lim,
+                            maxc: int, maxs: int, group: int,
+                            grouped: bool = False, ray_cert: bool = False):
+    """Nearest-first candidate lists through a SUPERCLUSTER prefilter
+    (cluster.py:784-919, exact): per-ray lists [B, maxc], or with
+    ``grouped=True`` per-BLOCK union lists [B/group, maxc] (the block
+    kernel's contract), built over C = maxs*64 prefiltered columns instead
+    of all K2 clusters:
+
+      1. a [B, K1] supercluster slab test, reduced per block of ``group``
+         rays (union of hits, block-min entry-t);
+      2. each block's ``maxs`` nearest superclusters (threshold-min
+         extraction, extract_candidates_min);
+      3. per-ray slab tests against those superclusters' 64 child boxes
+         each ([B, C], from the gathered planar rows ``cl_box_rows``);
+      4. the exact extraction over the C local columns (per ray, or per
+         block on the union), local ids mapped back to global cluster ids
+         through the block's supercluster list.
+
+    Equal to the dense build wherever no block hits more than ``maxs``
+    superclusters (entry-t up to the id-bit quantization).  A block that
+    does (SC overflow) raises ``overflow`` and its rows are poisoned as in
+    the JAX package: last ctn -> -BIG_T, last cand -> 0 where it was
+    empty, so no certificate fires on them.
+
+    ``ray_cert=True`` (only with ``grouped=True``) also returns covered
+    [B], the per-ray membership certificate over the local columns, False
+    in every SC-overflow block.  Returns (cand, ctn, overflow[, covered]).
+    Runs in block-aligned row chunks; chunking changes no result."""
+    B = ray_o.shape[0]
+    if B % group:
+        raise ValueError(f"{B} rays do not divide into blocks of {group}")
+    if ray_cert and not grouped:
+        raise ValueError("ray_cert needs grouped=True: the membership "
+                         "certificate is defined for block lists only")
+    inv_d = inv_dir(ray_d)
+    outs = [_hier_rows(scene, ray_o[lo:hi], inv_d[lo:hi], t_lim[lo:hi],
+                       maxc, maxs, group, grouped, ray_cert)
+            for lo, hi in _row_chunks(B, maxs * S_CLUSTER, group)]
+    cand = torch.cat([o[0] for o in outs])
+    ctn = torch.cat([o[1] for o in outs])
+    ovf = torch.stack([o[2] for o in outs]).any()
+    if ray_cert:
+        return cand, ctn, ovf, torch.cat([o[3] for o in outs])
+    return cand, ctn, ovf
+
+
+def _hier_rows(scene: ClusterScene, ray_o, inv_d, t_lim, maxc: int,
+               maxs: int, group: int, grouped: bool, ray_cert: bool):
+    """candidate_clusters_hier on one block-aligned chunk of rays."""
+    R = ray_o.shape[0]
+    nb = R // group
+    S = S_CLUSTER
+    C = maxs * S
+    k1 = scene.num_superclusters
+    # 1-2: each block's nearest superclusters
+    m1, tn1 = dense_box_mask(scene.sc_box, ray_o, inv_d, t_lim)    # [R,K1]
+    hit_g = m1.view(nb, group, k1).any(dim=1)
+    tn_g = torch.where(m1, torch.clamp_min(tn1, 0.0), BIG_T)
+    tn_g = tn_g.view(nb, group, k1).amin(dim=1)
+    scand, _sctn, _of = extract_candidates_min(hit_g, tn_g, maxs)
+    # SC overflow: the block may miss nearer clusters of dropped
+    # superclusters, so none of its certificates may fire
+    sc_of = hit_g.sum(dim=1) > maxs                               # [nb]
+    # 3: per-ray slab tests against the kept superclusters' child boxes
+    rows = scene.cl_box_rows[torch.clamp_min(scand, 0).long()]
+    box = rows.view(nb, 1, maxs, 8, S)
+    o4 = ray_o.view(nb, group, 1, 3, 1)
+    i4 = inv_d.view(nb, group, 1, 3, 1)
+    hit2, tnear = _slab_test([box[:, :, :, c] for c in range(6)],
+                             [o4[:, :, :, a] for a in range(3)],
+                             [i4[:, :, :, a] for a in range(3)],
+                             t_lim.view(nb, group, 1, 1))
+    hit2 = hit2 & (scand >= 0).view(nb, 1, maxs, 1)              # [nb,g,maxs,S]
+    covered = None
+    if grouped:
+        # 4: block union lists over the local columns
+        hit_b = hit2.view(nb, group, C).any(dim=1)
+        tn_b = torch.where(hit2, torch.clamp_min(tnear, 0.0), BIG_T)
+        tn_b = tn_b.view(nb, group, C).amin(dim=1)
+        cand_l, ctn, of2 = extract_candidates(hit_b, tn_b, maxc)
+        if ray_cert:
+            covered = membership_cert(hit2.view(R, C), tn_b, cand_l, ctn,
+                                      group)
+            covered = covered & ~sc_of.repeat_interleave(group)
+        sc_list = scand
+        row_of = sc_of
+    else:
+        # 4: per-ray lists over the local columns
+        cand_l, ctn, of2 = extract_candidates(hit2.view(R, C),
+                                              tnear.view(R, C), maxc)
+        sc_list = scand.repeat_interleave(group, dim=0)
+        row_of = sc_of.repeat_interleave(group)
+    slot = torch.clamp_min(cand_l, 0)
+    sc_g = torch.gather(sc_list, 1, torch.div(slot, S,
+                                              rounding_mode="floor").long())
+    cand = torch.where(cand_l >= 0, sc_g * S + slot % S, -1)
+    # SC-overflow rows: poison the certificate (cluster 0 as the filler id
+    # of an empty last slot is a real, harmless re-test)
+    cand[:, -1] = torch.where(row_of & (cand[:, -1] < 0), 0, cand[:, -1])
+    ctn[:, -1] = torch.where(row_of, -BIG_T, ctn[:, -1])
+    return cand, ctn, sc_of.any() | of2, covered

@@ -3,11 +3,12 @@ candidate-cluster lists (counterpart of
 sycl_ray_tracing_tpu/ops/pallas/listtrace.py).
 
 Host side (torch): root-box cull, one packed [B,8] ray row array, a
-STABLE spatial sort, the exact candidate build (ops/cluster.py), one
+STABLE spatial sort, the exact candidate build (ops/cluster.py: the dense
+build, or above 2*maxs*64 clusters the supercluster-prefiltered one), one
 kernel launch over the live prefix of blocks, and the reduction tail with
 its tie rule and the distance + membership certificates (``_run_once``);
-then the compacted per-ray escalation pass and the honest overflow flag
-(``_run``).
+then the compacted per-ray escalation pass, always on the dense build,
+and the honest overflow flag (``_run``).
 
 Kernels (csrc/listtrace.cu, CUDA C++ for sm_90a), both with the tail
 guard of ``_tail_guard``: after GROUP rounds, before each CHUNK of rounds
@@ -51,6 +52,7 @@ from sycl_ray_tracing_tpu_torch.ops.cluster import (
     ClusterScene,
     candidate_clusters,
     candidate_clusters_grouped,
+    candidate_clusters_hier,
     inv_dir,
 )
 from sycl_ray_tracing_tpu_torch.ops.intersect import BIG_T
@@ -408,7 +410,13 @@ def _run_once(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int, any_hit,
 
     ``any_hit``: bool or [B] bool.  ``mask``: optional [B] bool; False rays
     are dead and reported as misses.  Live rays sort ahead of dead ones,
-    so only the live prefix of blocks is built and launched."""
+    so only the live prefix of blocks is built and launched.
+
+    Scenes above 2*maxs*64 clusters (maxs = max(HIER_MAXS, maxc // 3)
+    superclusters a block) take the supercluster-prefiltered build
+    (listtrace.py:474-520), whose SC-overflow rows come poisoned (last
+    ctn -BIG_T, so unresolved); ``force_dense`` (the escalation pass)
+    keeps the dense build over all K2 clusters."""
     if maxc > 128:
         raise ValueError("winner packing uses at most 7 round bits")
     rslot = 1 << max(1, maxc - 1).bit_length()
@@ -418,12 +426,7 @@ def _run_once(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int, any_hit,
     nb = -(-B // rb)
     k2 = scene.num_clusters
     maxs = max(HIER_MAXS, maxc // 3)
-    if not force_dense and k2 > 2 * maxs * S_CLUSTER:
-        raise NotImplementedError(
-            f"{k2} clusters need the hierarchical candidate build "
-            "(candidate_clusters_hier), not ported yet: ROADMAP Queue 1, "
-            "item 10 (870k scale)"
-        )
+    big = not force_dense and k2 > 2 * maxs * S_CLUSTER
     # root-box cull: rays missing the scene box join the dead set
     lo, hi = _scene_bounds(scene)
     inv = inv_dir(ray_d)
@@ -459,12 +462,16 @@ def _run_once(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int, any_hit,
     resolved = torch.ones((nb * rb,), dtype=torch.bool, device=dev)
     if g:
         tris = _tiles_with_dummy(scene)
-        if share:
-            cand, ctn, _of, covered = candidate_clusters_grouped(
-                scene, rg[:, 0:3], rg[:, 3:6], rg[:, 6], maxc, rb)
+        args = (scene, rg[:, 0:3], rg[:, 3:6], rg[:, 6], maxc)
+        if share and big:
+            cand, ctn, _of, covered = candidate_clusters_hier(
+                *args, maxs, rb, grouped=True, ray_cert=True)
+        elif share:
+            cand, ctn, _of, covered = candidate_clusters_grouped(*args, rb)
+        elif big:
+            cand, ctn, _of = candidate_clusters_hier(*args, maxs, rb)
         else:
-            cand, ctn, _of = candidate_clusters(
-                scene, rg[:, 0:3], rg[:, 3:6], rg[:, 6], maxc)
+            cand, ctn, _of = candidate_clusters(*args)
         cand_k = torch.where(cand >= 0, cand, k2).to(torch.int32)
         if share:
             at, ar, _stop = block_tiles(cand_k.contiguous(), ctn, rg, tris,

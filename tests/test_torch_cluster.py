@@ -191,3 +191,140 @@ def test_extraction_key_order():
                                              4, exact=True)
     np.testing.assert_array_equal(cand.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(ctn.numpy(), np.asarray(jt))
+
+
+def test_negative_zero_entry_t_keys_like_jax():
+    """torch keeps -0.0 through a clamp where XLA gives +0.0: an entry-t of
+    -0.0 (a ray starting on a box's far face, pointing in) must key like
+    0, or it sorts ahead of every +0.0 column and its ctn reads -0.0."""
+    hit = torch.ones((1, 3), dtype=torch.bool)
+    tnear = torch.tensor([[0.0, -0.0, 1.0]])
+    for extract, jax_extract in (
+            (PC.extract_candidates,
+             lambda h, t: JC._extract_candidates_topk(h, t, 3, 3, exact=True)),
+            (PC.extract_candidates_min,
+             lambda h, t: JC._extract_candidates(h, t, 3, 3))):
+        cand, ctn, _of = extract(hit, tnear, 3)
+        jc, jt, _jo = jax_extract(jnp.asarray(hit.numpy()),
+                                  jnp.asarray(tnear.numpy()))
+        assert cand.tolist() == [[0, 1, 2]]
+        np.testing.assert_array_equal(cand.numpy(), np.asarray(jc))
+        assert not torch.signbit(ctn).any()
+        np.testing.assert_array_equal(ctn.numpy().view(np.int32),
+                                      np.asarray(jt).view(np.int32))
+
+
+@pytest.mark.parametrize("maxc", [4, 16, 128])
+def test_threshold_min_extraction_identical(maxc):
+    """One sort of the packed keys gives _extract_candidates' maxc
+    threshold-min rounds: cand bit for bit, ctn on every slot, overflow;
+    with zero, -0.0, negative and above-1e30 entry-t among the hits."""
+    rng = np.random.default_rng(maxc)
+    hit = rng.random((64, 100)) < 0.3
+    hit[0] = False                                   # an empty row
+    tn = rng.uniform(-1.0, 5.0, (64, 100)).astype(np.float32)
+    tn[:, ::9] = 0.0
+    tn[:, 1::9] = -0.0
+    tn[:, 2::13] = 2e30
+    jc, jt, jo = JC._extract_candidates(jnp.asarray(hit), jnp.asarray(tn),
+                                        maxc, 100)
+    pc, pt, po = PC.extract_candidates_min(torch.tensor(hit),
+                                           torch.tensor(tn), maxc)
+    np.testing.assert_array_equal(pc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(pt.numpy().view(np.int32),
+                                  np.asarray(jt).view(np.int32))
+    assert bool(po) == bool(jo) == (maxc < hit.sum(axis=1).max())
+
+
+@pytest.fixture(scope="module")
+def hier_mesh():
+    """A mesh of 4 superclusters (256 clusters), and rays half in a tight
+    bundle (blocks within few superclusters), half random (blocks that hit
+    more than 2)."""
+    tris = dragon_standin(30_000)
+    jcs, pcs = _both_clusters(tris)
+    rng = np.random.default_rng(13)
+    B = 256
+    o, d = _random_rays(B, rng)
+    h = B // 2
+    o[:h] = np.array([0.0, 0.2, 3.0], np.float32)
+    dd = np.stack([np.linspace(-0.02, 0.02, h), np.linspace(-0.01, 0.01, h),
+                   np.full(h, -1.0)], axis=1).astype(np.float32)
+    d[:h] = dd / np.linalg.norm(dd, axis=-1, keepdims=True)
+    tl = np.full(B, 3e38, np.float32)
+    tl[h::5] = 1.5
+    tl[h::7] = -3e38
+    return jcs, pcs, (o, d, tl)
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("maxs", [2, 4])
+def test_candidate_clusters_hier_identical(hier_mesh, grouped, maxs):
+    """The supercluster build against the JAX package's, per-ray and
+    grouped (with the membership certificate), with SC overflow (maxs 2 of
+    4 superclusters: poisoned rows) and without (maxs 4): cand, ctn,
+    overflow and covered identical."""
+    jcs, pcs, (o, d, tl) = hier_mesh
+    group, maxc = (32, 48) if grouped else (8, 8)
+    jout = JC.candidate_clusters_hier(
+        jcs, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tl), maxc,
+        maxs=maxs, group=group, grouped=grouped, exact=True,
+        ray_cert=grouped)
+    pout = PC.candidate_clusters_hier(
+        pcs, torch.tensor(o), torch.tensor(d), torch.tensor(tl), maxc, maxs,
+        group, grouped=grouped, ray_cert=grouped)
+    assert len(pout) == len(jout)
+    for name, a, b in zip(("cand", "ctn", "overflow", "covered"), jout, pout):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
+    poisoned = pout[1][:, -1] < 0
+    if maxs == 2:
+        assert poisoned.any() and not poisoned.all() and bool(pout[2])
+    else:
+        assert not poisoned.any()
+    if grouped:
+        cov = pout[3].numpy()
+        assert cov.any() and not cov.all()
+        assert not cov[np.repeat(poisoned.numpy(), group)].any()
+
+
+def test_hier_matches_dense_without_sc_overflow(hier_mesh):
+    """Without SC overflow the supercluster build keeps the dense build's
+    candidates: on rows that fit, the same set (the order may differ only
+    among equal quantized entry-t: local and global ids break ties
+    differently), and ctn slot by slot within the id-bit quantization."""
+    _jcs, pcs, (o, d, tl) = hier_mesh
+    args = (pcs, torch.tensor(o), torch.tensor(d), torch.tensor(tl), 32)
+    hc, ht, hof = PC.candidate_clusters_hier(*args, 4, 8)
+    dc, dt, dof = PC.candidate_clusters(*args)
+    assert bool(hof) == bool(dof)
+    assert torch.equal((hc >= 0).sum(dim=1), (dc >= 0).sum(dim=1))
+    fits = dc[:, -1] < 0
+    assert fits.any()
+    assert torch.equal(hc[fits].sort(dim=1).values, dc[fits].sort(dim=1).values)
+    live = dc >= 0
+    assert torch.allclose(ht[live], dt[live], rtol=2.0 ** -11, atol=0.0)
+    # the bundle's rows have no ties: identical lists
+    assert torch.equal(hc[:128], dc[:128])
+
+
+def test_hier_ray_cert_needs_grouped(hier_mesh):
+    _jcs, pcs, (o, d, tl) = hier_mesh
+    with pytest.raises(ValueError, match="grouped"):
+        PC.candidate_clusters_hier(pcs, torch.tensor(o), torch.tensor(d),
+                                   torch.tensor(tl), 8, 2, 8, ray_cert=True)
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_hier_build_chunking_is_exact(hier_mesh, monkeypatch, grouped):
+    """Block-aligned row chunks change no result of the supercluster
+    build."""
+    _jcs, pcs, (o, d, tl) = hier_mesh
+    args = (pcs, torch.tensor(o), torch.tensor(d), torch.tensor(tl), 16, 2,
+            32)
+    whole = PC.candidate_clusters_hier(*args, grouped=grouped,
+                                       ray_cert=grouped)
+    monkeypatch.setattr(PC, "_CHUNK_ELEMS", 64 * 2 * PC.S_CLUSTER)
+    chunked = PC.candidate_clusters_hier(*args, grouped=grouped,
+                                         ray_cert=grouped)
+    for a, b in zip(whole, chunked):
+        assert torch.equal(a, b)

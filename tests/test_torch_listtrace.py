@@ -235,17 +235,135 @@ def test_plain_kernel_round_rule():
     assert (ar[0, :5] == -1).all() and (at[0, :5] == BIG_T).all()
 
 
-def test_hierarchical_scenes_raise(mesh):
-    """Scenes above 2*maxs*64 clusters need the supercluster build, which
-    is not ported: the list tracer says so instead of guessing."""
-    _tris, _jcs, pcs = mesh
-    big = PC.ClusterScene(
+def _cluster_scene(pcs, k2):
+    """``pcs``'s superclusters and child boxes over a table of ``k2``
+    all-zero clusters (tiles that never hit)."""
+    return PC.ClusterScene(
         sc_box=pcs.sc_box, cl_box_rows=pcs.cl_box_rows,
-        cl_box=torch.zeros((2 * 42 * 64 + 64, 8)),
-        cl_tris=torch.zeros((2 * 42 * 64 + 64, 9 * 128)),
-        cl_tri_idx=torch.zeros((2 * 42 * 64 + 64, 128), dtype=torch.int32),
-    )
+        cl_box=torch.zeros((k2, 8)), cl_tris=torch.zeros((k2, 9 * 128)),
+        cl_tri_idx=torch.zeros((k2, 128), dtype=torch.int32))
+
+
+class _Spy:
+    """Wraps PL.candidate_clusters_hier, recording each call's ``grouped``
+    and how many of its rows came poisoned (SC overflow)."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        self._orig = PL.candidate_clusters_hier
+        monkeypatch.setattr(PL, "candidate_clusters_hier", self)
+
+    def __call__(self, *args, **kw):
+        out = self._orig(*args, **kw)
+        self.calls.append((kw.get("grouped", False),
+                           int((out[1][:, -1] < 0).sum())))
+        return out
+
+
+def test_hierarchical_scenes_take_the_supercluster_build(mesh, monkeypatch):
+    """Scenes above 2*maxs*64 clusters take the supercluster build (block
+    lists in share mode, per-ray lists at a pinned maxc); only scenes
+    above MAX_CLUSTERS raise."""
+    _tris, _jcs, pcs = mesh
+    big = _cluster_scene(pcs, 2 * 42 * 64 + 64)
     o = torch.zeros((64, 3))
     d = torch.tensor([[0.0, 0.0, 1.0]]).repeat(64, 1)
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        PL.closest_hit(big, o, d)
+    spy = _Spy(monkeypatch)
+    t, prim, of = PL.closest_hit(big, o, d)
+    assert [g for g, _ in spy.calls] == [True]
+    t, prim, of = PL.closest_hit(big, o, d, maxc=8)
+    assert [g for g, _ in spy.calls] == [True, False]
+    assert (prim == -1).all() and (t == BIG_T).all() and not bool(of)
+    with pytest.raises(ValueError, match="too large"):
+        PL.closest_hit(_cluster_scene(pcs, PL.MAX_CLUSTERS + 64), o, d)
+
+
+@pytest.fixture(scope="module")
+def big_mesh():
+    """A 40k-triangle stand-in: 320 clusters in 5 superclusters, above
+    2*maxs*64 = 256 once HIER_MAXS is 1 and maxc is 8 (maxs 2)."""
+    tris = dragon_standin(40_000)
+    perm = PC.sah_order(tris)
+    return JC.build_clusters(tris, order=perm), PC.build_clusters(
+        tris, order=perm, device="cpu")
+
+
+@pytest.mark.parametrize("share", [False, True])
+def test_big_branch_matches_jax(big_mesh, monkeypatch, share):
+    """_run_once, _run (with its dense escalation) and multi_query through
+    the supercluster build, on both packages, with SC-overflow rows among
+    the lists the kernels walk: closest-hit rays identical (t within
+    1e-5), any-hit rays on blocked and certain."""
+    jcs, pcs = big_mesh
+    monkeypatch.setattr(JL, "HIER_MAXS", 1)
+    monkeypatch.setattr(PL, "HIER_MAXS", 1)
+    spy = _Spy(monkeypatch)
+    rng = np.random.default_rng(1)
+    B = 256
+    o, d = _rays(rng, B, -2.0, 2.0)
+    tl = np.where(rng.random(B) < 0.3, 2.0, BIG_T).astype(np.float32)
+    mask = rng.random(B) < 0.85
+    ah = rng.random(B) < 0.4
+    jargs = (jcs, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tl), 8,
+             jnp.asarray(ah))
+    pargs = (pcs, torch.tensor(o), torch.tensor(d), torch.tensor(tl), 8,
+             torch.tensor(ah))
+    jout = JL._run_once(*jargs, mask=jnp.asarray(mask), share=share,
+                        exact=True)
+    pout = PL._run_once(*pargs, mask=torch.tensor(mask), share=share)
+    assert spy.calls and all(g == share for g, _ in spy.calls)
+    assert sum(n for _, n in spy.calls) > 0      # poisoned rows were walked
+    _compare_run((*jout[:3], False), (*pout, torch.tensor(False)), ah)
+    jout = JL._run(*jargs, mask=jnp.asarray(mask), share=share)
+    pout = PL._run(*pargs, mask=torch.tensor(mask), share=share)
+    hit = _compare_run(jout, pout, ah)
+    assert hit.any() and not hit[~mask].any()
+    # a pinned maxc: one pass, per-ray or block lists as asked
+    o2, d2 = _rays(rng, B, -2.0, 2.0)
+    tmax = np.full(B, 2.5 - 1e-4, np.float32)
+    jres, jof = JL.multi_query(jcs, [
+        (jnp.asarray(o), jnp.asarray(d), None, None, False),
+        (jnp.asarray(o2), jnp.asarray(d2), jnp.asarray(tmax), None, True),
+    ], maxc=8, share=share)
+    pres, pof = PL.multi_query(pcs, [
+        (torch.tensor(o), torch.tensor(d), None, None, False),
+        (torch.tensor(o2), torch.tensor(d2), torch.tensor(tmax), None, True),
+    ], maxc=8, share=share)
+    assert bool(pof) == bool(jof)
+    (jt, jp), (pt, pp) = jres[0], pres[0]
+    np.testing.assert_array_equal(pp.numpy(), np.asarray(jp))
+    hit = np.asarray(jp) >= 0
+    np.testing.assert_allclose(pt.numpy()[hit], np.asarray(jt)[hit],
+                               rtol=T_TOL, atol=T_TOL)
+    np.testing.assert_array_equal(pres[1][1].numpy() >= 0,
+                                  np.asarray(jres[1][1]) >= 0)
+
+
+def test_poisoned_last_slot_is_not_walked(big_mesh):
+    """An SC-overflow row's poisoned last slot (cluster 0, entry-t -BIG_T)
+    lies past empty slots (entry-t BIG_T), so where its real count ends at
+    or before the last chunk start, the tail guard stops the row before
+    that slot: its walk equals the walk without the slot."""
+    _jcs, pcs = big_mesh
+    rng = np.random.default_rng(2)
+    B, maxc = 512, 32
+    o, d = _rays(rng, B, -2.0, 2.0)
+    o, d = torch.tensor(o), torch.tensor(d)
+    cand, ctn, _of = PC.candidate_clusters_hier(
+        pcs, o, d, torch.full((B,), BIG_T), maxc, 1, 8)
+    k2 = pcs.num_clusters
+    cand = torch.where(cand >= 0, cand, k2).to(torch.int32)
+    real = torch.where(cand[:, :-1] != k2, torch.arange(1, maxc), 0).amax(1)
+    last_c0 = PL.GROUP + (maxc - 1 - PL.GROUP) // PL.CHUNK * PL.CHUNK
+    rows = (ctn[:, -1] < 0) & (cand[:, -2] == k2) & (real <= last_c0)
+    assert rows.sum() >= 8
+    rays = torch.cat([o, d, torch.full((B, 1), BIG_T), torch.zeros((B, 1))],
+                     1)[rows].contiguous()
+    tiles = PL._tiles_with_dummy(pcs)
+    c, t = cand[rows].contiguous(), ctn[rows].contiguous()
+    at, ar, stop = PL.list_tiles(c, t, rays, tiles)
+    assert (stop < maxc - 1).all()
+    c_cut = c.clone()
+    c_cut[:, -1] = k2
+    at2, ar2, _stop = PL.list_tiles(c_cut, t, rays, tiles)
+    assert torch.equal(at, at2) and torch.equal(ar, ar2)

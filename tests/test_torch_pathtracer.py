@@ -15,12 +15,14 @@ import torch
 
 from sycl_ray_tracing_tpu.models import pathtracer as JP
 from sycl_ray_tracing_tpu.models.camera import pbrt_dragon_camera as jax_cam
+from sycl_ray_tracing_tpu.ops.pallas import listtrace as JL
 from sycl_ray_tracing_tpu.utils.config import RenderConfig as JaxConfig
 from sycl_ray_tracing_tpu.utils.procedural import dragon_scene as jax_dragon
 from sycl_ray_tracing_tpu_torch.models import pathtracer as PP
 from sycl_ray_tracing_tpu_torch.models.camera import pbrt_dragon_camera
 from sycl_ray_tracing_tpu_torch.models.scene import scene_from_numpy
 from sycl_ray_tracing_tpu_torch.ops import rng
+from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as PL
 from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
 from tests.test_torch_cluster import jax_scene_arrays
 
@@ -80,6 +82,42 @@ def test_render_three_bounces_compacted(scenes, monkeypatch):
     close = np.isclose(pi, ji, rtol=1e-3, atol=1e-3).all(axis=-1)
     assert close.mean() >= 0.99, close.mean()
     assert abs(pi.mean() - ji.mean()) <= 0.01 * abs(ji.mean())
+
+
+def test_render_bounce1_through_the_supercluster_build(monkeypatch):
+    """A 20k-triangle frame (192 clusters in 3 superclusters) with
+    HIER_MAXS 1 and DEFAULT_MAXC_SHARE 4 on both packages, so every main
+    pass takes the supercluster build with block lists of 4 slots and
+    1 supercluster a block (maxs 1: SC-overflow rows poisoned) and the
+    escalation the dense per-ray build: per pixel, and equal overflow."""
+    js = jax_dragon(n_tris=20_000, with_sky=True, sky_res=(16, 32))
+    ps = scene_from_numpy(jax_scene_arrays(js), "cpu")
+    assert ps.clusters.num_clusters > 2 * 1 * 64
+    for mod in (JL, PL):
+        monkeypatch.setattr(mod, "HIER_MAXS", 1)
+        monkeypatch.setattr(mod, "DEFAULT_MAXC_SHARE", 4)
+    builds = []
+    hier = PL.candidate_clusters_hier
+
+    def spy(*args, **kw):
+        out = hier(*args, **kw)
+        builds.append(int((out[1][:, -1] < 0).sum()))
+        return out
+
+    monkeypatch.setattr(PL, "candidate_clusters_hier", spy)
+    kw = dict(width=16, height=16, samples=1, bounces=1, intersect="list",
+              estimator="shared", tile_rays=None)
+    ji, jaux = JP.render(js, jax_cam(), JaxConfig(**kw),
+                         jax.random.PRNGKey(4), with_aux=True)
+    with torch.no_grad():
+        pi, paux = PP.render(ps, pbrt_dragon_camera("cpu"),
+                             RenderConfig(**kw), rng.prng_key(4),
+                             with_aux=True)
+    assert builds and sum(builds) > 0
+    assert paux["overflow"] == bool(jaux["overflow"])
+    ji = np.asarray(ji)
+    assert np.isfinite(ji).all() and ji.mean() > 1e-4
+    np.testing.assert_allclose(pi.numpy(), ji, rtol=1e-4, atol=1e-6)
 
 
 def test_render_debug_pixel_and_clamp(scenes):

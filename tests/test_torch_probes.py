@@ -624,3 +624,57 @@ def test_entry_points_default_to_the_card(name, monkeypatch):
         call(fn)
     out = call(fn, device="cpu")                  # asked for: the CPU
     assert out is not None
+
+
+def test_frame_profile_report_and_triangle_count(monkeypatch):
+    """probes/frame.py: the report names the top device ops with their
+    share of the frame's device time; --tris reaches the scene, and the
+    profile needs the card."""
+    from sycl_ray_tracing_tpu_torch.probes import frame
+
+    prof = dict(kernels={"block_tiles_kernel": (2, 1.5, 1.0)},
+                top=[(3.0, 4, "void elementwise_kernel<float>"),
+                     (1.0, 2, "block_tiles_kernel")],
+                device_ms=6.0, wall_ms=60.0)
+    lines = frame.report(prof, "profiled", "card")
+    assert any("top device op 1: 3.0000 ms (50.0% of device time), 4 "
+               "launches: void elementwise_kernel<float>" in x for x in lines)
+    assert lines[-1].endswith("(device busy 10.0%) (card)")
+    seen = []
+    monkeypatch.setattr(procedural, "dragon_scene",
+                        lambda n, **kw: seen.append(n) or 1 / 0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        frame.main(["--tris", "870000"])
+    monkeypatch.setattr("sycl_ray_tracing_tpu_torch.probes.common."
+                        "require_cuda", lambda: "cpu")
+    monkeypatch.setattr("sycl_ray_tracing_tpu_torch.probes.common."
+                        "card_line", lambda: "card")
+    with pytest.raises(ZeroDivisionError):
+        frame.main(["--tris", "870000"])
+    assert seen == [870_000]
+
+
+def test_frame_build_ms_records_and_restores(monkeypatch):
+    """build_ms replays the candidate builds a render called (here one
+    grouped main pass) and puts the list tracer's functions back.  (The
+    profile records the card's activity; here it only runs the replay.)"""
+    from sycl_ray_tracing_tpu_torch.probes import frame
+
+    replayed = []
+
+    def replay(fn, kernels):
+        replayed.extend(fn())
+        return dict(device_ms=1.0)
+
+    monkeypatch.setattr(frame, "profile", replay)
+    cs = PC.build_clusters(procedural.dragon_standin(2_000), order="morton",
+                           device="cpu")
+    rng = np.random.default_rng(0)
+    o = torch.tensor(rng.uniform(-0.2, 0.2, (64, 3)), dtype=torch.float32)
+    d = torch.tensor([[0.0, 0.0, 1.0]]).repeat(64, 1)
+    builds = frame.build_ms(lambda: PL.closest_hit(cs, o, d))
+    assert builds["candidate_clusters_grouped"] == (1, 1.0)
+    assert len(replayed) == 1 and len(replayed[0]) == 4
+    assert set(builds) <= set(frame.BUILDS)
+    assert PL.candidate_clusters_grouped is PC.candidate_clusters_grouped

@@ -61,6 +61,22 @@ Phases (any failure exits non-zero):
      with the top device ops) and each candidate build's device time over
      a frame; certified closest hits against the brute-force oracle on a
      ray subset.
+  7. The backward pass, bench.py section 2: value and gradient of the
+     200k frame's mean w.r.t. materials.diffuse through render() with
+     remat.  First the frame with remat=False, then the timed warm
+     fwd+bwd frame with the launch counters reset just before (time,
+     Mrays/s, overflow False, a finite gradient with a nonzero sum,
+     block_tiles and list_tiles launches equal to phase 3's forward
+     frame's: the replay traces nothing); for both frames the memory held
+     before, the forward's peak, the memory held after the forward and
+     the backward's peak; the two frames' gradients against each other,
+     then one frame profiled in two windows
+     (forward, backward: device busy share, the backward's top device ops
+     and no list-kernel launch in it).  On one 32768-ray tile at 8
+     bounces: the forward radiance bit-identical between the kernels and
+     the plain versions, their gradients within GRAD_RTOL, and the
+     kernels' AD against a central finite difference of diffuse[2, 0]
+     (the ground's red) within 2e-3 + 5%.
 
 The second-to-last lines are the card line and one JSON object describing
 each kernel (time, plain version's time, launches, and the bound: the
@@ -88,6 +104,7 @@ BOUNCES = 8
 TILE = 32768
 LISTTRACE_CU = "sycl_ray_tracing_tpu_torch/csrc/listtrace.cu"
 PROBES_CU = "sycl_ray_tracing_tpu_torch/csrc/probes.cu"
+GRAD_RTOL = 1e-4       # gradients of one frame by two routes, of max |g|
 BLOCK_REPLACES = "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:298"
 LIST_REPLACES = "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:245"
 
@@ -593,6 +610,151 @@ def big_frame_phase(kernels, card, cam, cfg, key, tile_key, px0, py0):
     log(f"phase 6 took {time.perf_counter() - t6:.1f} s, card {card}")
 
 
+def grad_phase(kernels, card, scene, cam, cfg, key, tile_key, px0, py0,
+               fwd_launches, fwd_rise):
+    """Phase 7: the backward pass (see the module docstring).  Adds each
+    list kernel's launches in the fwd+bwd frame to its kernels entry."""
+    import dataclasses
+
+    import torch
+
+    from sycl_ray_tracing_tpu_torch.models import pathtracer as pt
+    from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as lt
+    from sycl_ray_tracing_tpu_torch.probes import frame
+
+    t7 = time.perf_counter()
+    mats = scene.materials
+
+    def with_diffuse():
+        """(scene, diffuse leaf): the scene's diffuse as a new leaf that
+        requires grad."""
+        d = mats.diffuse.detach().clone().requires_grad_()
+        return scene.with_materials(dataclasses.replace(mats, diffuse=d)), d
+
+    def fwd(remat=True):
+        s, d = with_diffuse()
+        img, aux = pt.render(s, cam, dataclasses.replace(cfg, remat=remat),
+                             key, with_aux=True)
+        return img, aux, d
+
+    def fwd_bwd(remat=True):
+        """(frame, aux, grad, memory): memory in GiB held before the
+        frame, the forward's peak, held after the forward (the graph and
+        the frame), the backward's peak (max_memory_allocated)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem = [torch.cuda.memory_allocated()]
+        img, aux, d = fwd(remat)
+        torch.cuda.synchronize()
+        mem += [torch.cuda.max_memory_allocated(),
+                torch.cuda.memory_allocated()]
+        torch.cuda.reset_peak_memory_stats()
+        img.mean().backward()
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.max_memory_allocated())
+        return img.detach(), aux, d.grad, [m / 2**30 for m in mem]
+
+    def mem_note(mem):
+        before, fpeak, held, bpeak = mem
+        peak = max(fpeak, bpeak)
+        return (f"peak {peak:.2f} GiB, {peak - before:.2f} above the "
+                f"{before:.2f} held before the frame (forward peak "
+                f"{fpeak:.2f}, held after the forward {held:.2f}, backward "
+                f"peak {bpeak:.2f})")
+
+    # remat=False first: it keeps every bounce's graph until backward()
+    _img, _aux, g_keep, keep_mem = fwd_bwd(remat=False)
+    del _img, _aux
+    lt.reset_launch_counts()
+    t0 = time.perf_counter()
+    img, aux, grad, mem = fwd_bwd()
+    step_s = time.perf_counter() - t0
+    launches = dict(lt.LAUNCHES)
+    finite = bool(torch.isfinite(img).all() and torch.isfinite(grad).all())
+    gsum = float(grad.sum())
+    log(f"phase 7 fwd+bwd frame (value and grad of the mean w.r.t. "
+        f"materials.diffuse, remat=True): {step_s * 1e3:.1f} ms warm, "
+        f"{W * H * BOUNCES / step_s / 1e6:.3f} Mrays/s ({W}x{H}x1spp "
+        f"x{BOUNCES} bounces / fwd+bwd time); mean {float(img.mean()):.6f} "
+        f"overflow={aux['overflow']} finite={finite}; grad sum {gsum:.6g}, "
+        f"grad {grad.tolist()}; launches {launches} (forward frame "
+        f"{fwd_launches}) ({card})")
+    log(f"phase 7 device memory (max_memory_allocated): fwd+bwd with remat "
+        f"{mem_note(mem)}; with remat=False {mem_note(keep_mem)}; the "
+        f"forward-only frame (phase 3) peaked {fwd_rise:.2f} GiB above what "
+        f"was held before it ({card})")
+    if not finite or aux["overflow"] or gsum == 0.0 \
+            or tuple(img.shape) != (H, W, 3):
+        raise RuntimeError("the fwd+bwd frame failed its checks")
+    if launches != fwd_launches:
+        raise RuntimeError(f"the fwd+bwd frame launched {launches}, the "
+                           f"forward frame {fwd_launches}")
+    err = max_abs_err(grad, g_keep)
+    top = float(g_keep.abs().max())
+    log(f"phase 7 gradient with remat against remat=False: max |d| "
+        f"{err:.3g} ({err / top:.3g} of max |g|; limit {GRAD_RTOL})")
+    if err > GRAD_RTOL * top:
+        raise RuntimeError("remat changed the gradient")
+    for entry in kernels[:2]:
+        entry["frame_fwd_bwd"] = dict(launches=launches[entry["name"]])
+
+    # one more frame in two profiler windows: forward, then backward
+    held = []
+    prof_f = frame.profile(lambda: held.append(fwd()))
+    loss = held[0][0].mean()
+    prof_b = frame.profile(loss.backward)
+    del held, loss
+    for line in frame.report(prof_b, "phase 7 profiled backward", card):
+        log(line)
+    dev = prof_f["device_ms"] + prof_b["device_ms"]
+    wall = prof_f["wall_ms"] + prof_b["wall_ms"]
+    log(f"phase 7 profiled fwd+bwd frame: forward {prof_f['device_ms']:.1f} "
+        f"ms device in {prof_f['wall_ms']:.1f} ms wall, backward "
+        f"{prof_b['device_ms']:.1f} ms device in {prof_b['wall_ms']:.1f} ms "
+        f"wall; device busy {dev / wall:.1%} of the fwd+bwd frame ({card})")
+    if any(n for n, _ms, _top in prof_b["kernels"].values()):
+        raise RuntimeError("the backward pass launched a list kernel")
+
+    # one 8-bounce tile: kernels against plain versions, then AD against a
+    # central finite difference of the ground's red diffuse
+    def tile(impl=None):
+        s, d = with_diffuse()
+        rad = pt.render_rays(s, cam, px0, py0, W, H, tile_key, 1, BOUNCES,
+                             impl=impl)
+        rad.mean().backward()
+        return rad.detach(), d.grad
+
+    rad_k, g_k = tile()
+    rad_p, g_p = tile("plain")
+    same = torch.equal(rad_k, rad_p)
+    err = max_abs_err(g_k, g_p)
+    top = float(g_p.abs().max())
+    log(f"phase 7 tile: {rad_k.shape[0]} rays x {BOUNCES} bounces, forward "
+        f"radiance bit-identical between kernels and plain versions={same}; "
+        f"gradients max |d| {err:.3g} ({err / top:.3g} of max |g|; limit "
+        f"{GRAD_RTOL})")
+    if not same or err > GRAD_RTOL * top:
+        raise RuntimeError("the tile's fwd+bwd differs between kernels and "
+                           "plain versions")
+    eps = 1e-2
+
+    def tile_mean(delta):
+        d = mats.diffuse.clone()
+        d[2, 0] += delta
+        s = scene.with_materials(dataclasses.replace(mats, diffuse=d))
+        with torch.no_grad():
+            return float(pt.render_rays(s, cam, px0, py0, W, H, tile_key, 1,
+                                        BOUNCES).double().mean())
+
+    fd = (tile_mean(eps) - tile_mean(-eps)) / (2 * eps)
+    ad = float(g_k[2, 0])
+    log(f"phase 7 tile: d mean / d diffuse[2, 0] by AD {ad:.6g}, by central "
+        f"difference (eps {eps}) {fd:.6g}; limit 2e-3 + 5%")
+    if not abs(ad - fd) <= 2e-3 + 0.05 * abs(fd):
+        raise RuntimeError("AD disagrees with the finite difference")
+    log(f"phase 7 took {time.perf_counter() - t7:.1f} s, card {card}")
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     try:
@@ -758,10 +920,13 @@ def main() -> int:
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
         lt.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         img, aux = pt.render(scene, cam, cfg, key, with_aux=True)
         torch.cuda.synchronize()
         frame_s = time.perf_counter() - t0
+        fwd_peak = torch.cuda.max_memory_allocated()
         launches = dict(lt.LAUNCHES)
         for k in kernels:
             k["launches"] = launches[k["name"]]
@@ -774,7 +939,9 @@ def main() -> int:
             f"overflow={aux['overflow']} launches={launches}")
         log(f"phase 3 frame time {frame_s * 1e3:.1f} ms warm ({cold * 1e3:.1f} "
             f"ms first), {mrays:.3f} Mrays/s ({W}x{H}x1spp x{BOUNCES} bounces "
-            f"/ frame time), card {card}")
+            f"/ frame time), peak device memory {fwd_peak / 2**30:.2f} GiB "
+            f"({fwd_before / 2**30:.2f} GiB held before the frame), card "
+            f"{card}")
         if not finite or mean <= 1e-4 or aux["overflow"] \
                 or tuple(img.shape) != (H, W, 3):
             raise RuntimeError("main-path frame failed its checks")
@@ -971,6 +1138,10 @@ def main() -> int:
 
         # ---- phase 6: the 870k-triangle frame ----
         big_frame_phase(kernels, card, cam, cfg, key, tile_key, px0, py0)
+
+    # ---- phase 7: the backward pass (bench.py section 2) ----
+    grad_phase(kernels, card, scene, cam, cfg, key, tile_key, px0, py0,
+               launches, (fwd_peak - fwd_before) / 2**30)
 
     for k in kernels:
         del k["ops"], k["bytes"]

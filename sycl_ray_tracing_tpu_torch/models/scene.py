@@ -54,6 +54,12 @@ class Materials:
              self.roughness[:, None]], dim=1,
         )
 
+    def lookup(self, idx: torch.Tensor):
+        """Per-ray (emission, diffuse, metalness, roughness) by material
+        index [...]: one row gather of the packed table (scene.py:41)."""
+        rows = self.packed()[idx.long()]
+        return rows[..., 0:3], rows[..., 3:6], rows[..., 6], rows[..., 7]
+
 
 def make_materials(emission, diffuse, metalness, roughness,
                    device="cuda") -> Materials:
@@ -69,7 +75,7 @@ def make_materials(emission, diffuse, metalness, roughness,
 @dataclasses.dataclass(frozen=True)
 class Scene:
     """Complete render scene (triangles only: analytic spheres are not
-    ported yet, ROADMAP Queue 1, item 11).  ``slot_packed`` [K2,T] i32 is the
+    ported yet, ROADMAP Queue 1, item 4).  ``slot_packed`` [K2,T] i32 is the
     cluster-slot shading table aligned with ``clusters.cl_tri_idx``:
     tri_idx | material_id << 20, so one gather by the list tracer's packed
     (cluster, lane) winner resolves primitive and material."""
@@ -97,6 +103,18 @@ class Scene:
 
     def with_clusters(self, clusters) -> "Scene":
         return dataclasses.replace(self, clusters=clusters)
+
+    def with_materials(self, materials: Materials) -> "Scene":
+        """The same scene with other materials (for example ones whose
+        tensors require grad: the render differentiates through them)."""
+        return dataclasses.replace(self, materials=materials)
+
+    def with_env_map(self, image) -> "Scene":
+        """The same scene under another sky [H,W,3]: a torch image keeps
+        its graph (texel gradients reach it), host arrays go to the
+        scene's device."""
+        return dataclasses.replace(
+            self, env_map=build_sampler(image, self.device))
 
     def build_acceleration(self, order="sah") -> "Scene":
         """Build the clustered acceleration structure (native SAH leaf
@@ -175,7 +193,7 @@ def scene_from_numpy(arrays: dict, device) -> Scene:
     n_sph = np.asarray(arrays.get("sphere_radii", np.zeros(0))).shape[0]
     if n_sph:
         raise NotImplementedError(
-            "spheres are not ported yet (ROADMAP Queue 1, item 11)")
+            "spheres are not ported yet (ROADMAP Queue 1, item 4)")
     return Scene(
         triangles=t("triangles", np.float32),
         materials=Materials(

@@ -5,6 +5,11 @@ The separable row/column CDF is built in numpy exactly as the JAX
 package's host path builds it, so the tables are bit-identical; the
 inversions are ``torch.searchsorted(right=True)`` (the JAX package's
 dense compare-and-count computes the same index).
+
+Differentiable w.r.t. the texels, as in the JAX package: radiance
+lookups are gathers, so gradients scatter into ``image``; the CDF tables
+and the luminance in the pdf are detached (the detached-sampling
+estimator).
 """
 
 from __future__ import annotations
@@ -34,8 +39,22 @@ class EnvMapSampler(NamedTuple):
 
 def build_sampler(image, device) -> EnvMapSampler:
     """Build the separable CDF tables on the host, then move them to
-    ``device``."""
+    ``device``.  A torch ``image`` stays the sampler's image, graph and
+    device included, so texel gradients reach it; its tables are built
+    from its detached values (one host copy per build) on the image's
+    device."""
+    if isinstance(image, torch.Tensor):
+        tables = _host_tables(image.detach().cpu().numpy())
+        return EnvMapSampler(image=image, **{
+            f: torch.tensor(v, device=image.device) for f, v in tables.items()})
     img_np = np.asarray(image, np.float32)
+    return sampler_from_numpy(dict(image=img_np, **_host_tables(img_np)),
+                              device)
+
+
+def _host_tables(img_np: np.ndarray) -> dict:
+    """The sampler's tables from a float32 [H,W,3] image, in numpy
+    (the JAX package's host path, envmap.py:67-93)."""
     lum = (
         0.3086 * img_np[..., 0]
         + 0.6094 * img_np[..., 1]
@@ -52,12 +71,9 @@ def build_sampler(image, device) -> EnvMapSampler:
                   constant_values=np.inf).reshape(h * nb, blk)
     cblk = fine.reshape(h, nb, blk)[:, :, -1]
     cblk = np.where(np.isinf(cblk), cond_cdf[:, -1:].repeat(nb, 1), cblk)
-    return sampler_from_numpy(
-        dict(image=img_np, row_cdf=row_cdf, cond_cdf=cond_cdf,
-             total=np.float32(total), cond_blk=cblk.astype(np.float32),
-             cond_fine=fine.astype(np.float32)),
-        device,
-    )
+    return dict(row_cdf=row_cdf, cond_cdf=cond_cdf, total=np.float32(total),
+                cond_blk=cblk.astype(np.float32),
+                cond_fine=fine.astype(np.float32))
 
 
 def sampler_from_numpy(arrays: dict, device) -> EnvMapSampler:
@@ -128,7 +144,7 @@ def pdf_of_texel(sampler: EnvMapSampler, x, y, sin_theta):
     """Solid-angle pdf of picking texel (x,y):
     (lum/total) * W*H / (2 pi^2 sin(theta)) (render_kernel.cpp:594-595)."""
     h, w = sampler.image.shape[0], sampler.image.shape[1]
-    lum = luminance(sampler.image[y, x])
+    lum = luminance(sampler.image.detach()[y, x])
     pdf = (lum / sampler.total) * (w * h)
     return pdf / torch.clamp_min(2.0 * math.pi * math.pi * sin_theta, 1e-8)
 

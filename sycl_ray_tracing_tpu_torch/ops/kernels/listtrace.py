@@ -603,6 +603,7 @@ def _default_maxc(share, scene: ClusterScene | None = None) -> int:
     return min(128, mc)
 
 
+@torch.no_grad()
 def closest_hit(scene: ClusterScene, ray_o, ray_d, maxc: int | None = None,
                 mask=None, share=None, with_resolved: bool = False,
                 impl=None):
@@ -626,6 +627,7 @@ def closest_hit(scene: ClusterScene, ray_o, ray_d, maxc: int | None = None,
     return t, prim, overflow
 
 
+@torch.no_grad()
 def any_hit(scene: ClusterScene, ray_o, ray_d, t_max, maxc: int | None = None,
             mask=None, share=None, impl=None):
     """Occlusion: True where a triangle lies at t < t_max - SHADOW_EPS
@@ -641,6 +643,7 @@ def any_hit(scene: ClusterScene, ray_o, ray_d, t_max, maxc: int | None = None,
     return packed >= 0, overflow
 
 
+@torch.no_grad()
 def multi_query(scene: ClusterScene, queries, maxc: int | None = None,
                 share=None, impl=None):
     """FUSED scene queries: one sort + candidate build + launch for
@@ -649,7 +652,12 @@ def multi_query(scene: ClusterScene, queries, maxc: int | None = None,
     ``queries``: list of (ray_o [B,3], ray_d [B,3], t_lim [B] or None for
     closest-hit, mask [B] or None[, any_hit bool]).  Returns (results,
     overflow) with results[i] = (t [B], packed [B]); packed >= 0 means "a
-    triangle lies below t_lim".  Any-hit queries read only packed >= 0."""
+    triangle lies below t_lim".  Any-hit queries read only packed >= 0.
+
+    Traversal records no autograd graph, like every query here (the JAX
+    package's stop_gradient, listtrace.py:906-907, 954-956): gradients
+    reach a scene through ``finalize_hit``'s re-intersection of the
+    winner and the shading."""
     _check_scene(scene)
     share = _resolve_share(share, maxc)
     escalate = maxc is None

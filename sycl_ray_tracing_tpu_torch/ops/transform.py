@@ -1,8 +1,10 @@
 """4x4 row-major homogeneous transforms: the subset ``models/camera.py``
 uses (counterpart of sycl_ray_tracing_tpu/ops/transform.py).
 
-Transforms are built as float32 tensors on the CPU; ``Camera.create``
-moves the composed view matrix to its device.
+Transforms are built as float32 tensors on the CPU, or on the device of
+a tensor argument; ``Camera.create`` moves the composed view matrix to
+its device.  Tensor arguments keep their autograd graph, so a camera pose
+can be differentiated through them.
 """
 
 from __future__ import annotations
@@ -16,22 +18,25 @@ def identity() -> torch.Tensor:
     return torch.eye(4, dtype=torch.float32)
 
 
+def _scalars(*vals) -> torch.Tensor:
+    """Python numbers and 0-d tensors stacked into one float32 vector on
+    the first tensor's device (else the CPU); tensors keep their graph."""
+    dev = next((v.device for v in vals if isinstance(v, torch.Tensor)), None)
+    return torch.stack([torch.as_tensor(v, dtype=torch.float32, device=dev)
+                        for v in vals])
+
+
 def translation(x, y, z) -> torch.Tensor:
-    m = torch.eye(4, dtype=torch.float32)
-    m[:3, 3] = torch.tensor([x, y, z], dtype=torch.float32)
-    return m
+    return _scalars(1.0, 0.0, 0.0, x, 0.0, 1.0, 0.0, y, 0.0, 0.0, 1.0, z,
+                    0.0, 0.0, 0.0, 1.0).reshape(4, 4)
 
 
 def rotation_x(deg) -> torch.Tensor:
     """Rotation about X (mat.cpp:210-220)."""
-    r = torch.deg2rad(torch.tensor(deg, dtype=torch.float32))
+    r = torch.deg2rad(_scalars(deg)[0])
     c, s = torch.cos(r), torch.sin(r)
-    m = torch.eye(4, dtype=torch.float32)
-    m[1, 1] = c
-    m[2, 2] = c
-    m[1, 2] = -s
-    m[2, 1] = s
-    return m
+    return _scalars(1.0, 0.0, 0.0, 0.0, 0.0, c, -s, 0.0, 0.0, s, c, 0.0,
+                    0.0, 0.0, 0.0, 1.0).reshape(4, 4)
 
 
 def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -4,9 +4,9 @@ The JAX package's ``RenderConfig`` fields that the ported path reads,
 with the same names and defaults, so one set of arguments describes a
 frame in both packages.  Defaults match the reference:
 512x512, 64 spp, 8 bounces (main.cpp:32-40).  The JAX fields that only
-unported code reads (``camera`` for the CLI, ``remat`` for the backward
-pass, ``checkpoint``/``checkpoint_batch`` for progressive rendering) are
-left out until that code is ported.
+unported code reads (``camera`` for the CLI, ``checkpoint``/
+``checkpoint_batch`` for progressive rendering) are left out until that
+code is ported.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ class RenderConfig:
     height: int = 512
     samples: int = 64
     bounces: int = 8
-    # intersection backend; the port implements "list" only
+    # intersection backend; the port implements "list" only, and "auto"
+    # means "list" on a scene with clusters
     intersect: str = "auto"
     # restrict render to one pixel for debugging (reference DEBUG_PIXEL)
     debug_pixel: Optional[Tuple[int, int]] = None
@@ -34,6 +35,10 @@ class RenderConfig:
     estimator: str = "shared"
     # clamp per-sample radiance (firefly suppression; None = unbiased)
     max_radiance: Optional[float] = None
+    # replay each bounce (and each sample, when a tile takes several) in
+    # the backward pass instead of keeping its graph; the replay reuses
+    # the list tracer's recorded answers (path-replay backward)
+    remat: bool = True
     # GGX sampler: "fixed" or "reference" (the reference's missing-sqrt bug)
     ggx_sampler: str = "fixed"
 

@@ -77,11 +77,34 @@ Phases (any failure exits non-zero):
      the plain versions, their gradients within GRAD_RTOL, and the
      kernels' AD against a central finite difference of diffuse[2, 0]
      (the ground's red) within 2e-3 + 5%.
+  8. The parity estimator (``trace``, 5 scene queries a bounce) and the
+     other backends.  (a) The 200k frame of phase 3 with
+     estimator="parity": cold and warm time, Mrays/s, both list kernels'
+     launches (counters reset just before; each must be above 0), peak
+     memory, overflow False, a finite image, its mean beside phase 3's;
+     one more frame with each list-kernel launch timed and bounded, and
+     one profiled (each list kernel's device time, device busy share,
+     top device ops).
+     (b) One 32768-ray parity tile at 8 bounces, kernels against plain
+     versions: bit-identical radiance.  (c) The same scene plus two
+     spheres, through the fused list path: a warm frame (overflow False,
+     primary rays ending on the spheres) and the tile that holds them
+     bit-identical between kernels and plain versions.  (d) A tile with
+     the materials padded to 2049 rows (the unfused shading) against the
+     fused path on the unpadded scene, both uncompacted: at least 99% of
+     rays within 1e-3 and the means within 1%.  (e) A 4k-triangle dragon
+     with a sky and the two spheres, with clusters and a SAH BVH, at
+     64x64, 2 spp, 3 bounces, both estimators through "list", "cluster",
+     "bvh" and "brute": each frame's time (the BVH's lockstep steps too),
+     overflow False, and every image within rtol 2e-4 / atol 1e-5 of
+     brute force per pixel (tests/test_integrator.py:293-294).
 
 The second-to-last lines are the card line and one JSON object describing
 each kernel (time, plain version's time, launches, and the bound: the
 least time an H100 could take for the same work); the last line is
-{"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
+{"ok": true, "device": {...}}.  Each kernel's entry also carries its
+launches in the fwd+bwd frame (phase 7) and the parity frame (phase 8).
+Without CUDA, or without the rest of the
 repository beside it, the script exits 2 and prints no result.
 """
 
@@ -105,6 +128,14 @@ TILE = 32768
 LISTTRACE_CU = "sycl_ray_tracing_tpu_torch/csrc/listtrace.cu"
 PROBES_CU = "sycl_ray_tracing_tpu_torch/csrc/probes.cu"
 GRAD_RTOL = 1e-4       # gradients of one frame by two routes, of max |g|
+# phase 8: two spheres in the dragon camera's view (tests/test_integrator.py
+# :243-290), and the small scene every backend renders
+SPHERES = (((1.5, 0.0, 0.0), 0.5, dict(diffuse=(0.8, 0.3, 0.2))),
+           ((-1.2, 0.5, 0.8), 0.35, dict(metalness=0.5, roughness=0.3)))
+SMALL_TRIS = 4_000
+SMALL_W = 64
+SMALL_SPP = 2
+SMALL_BOUNCES = 3
 BLOCK_REPLACES = "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:298"
 LIST_REPLACES = "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:245"
 
@@ -441,7 +472,8 @@ def big_frame_phase(kernels, card, cam, cfg, key, tile_key, px0, py0):
 
     # the bounce-1 fused launch's hierarchical lists, kernels vs plain
     with Capture(lt) as cap:
-        pt.render_rays(scene, cam, px0, py0, W, H, tile_key, 1, 1)
+        pt.render_rays(scene, cam, px0, py0, W, H, tile_key, 1, 1,
+                       estimator="shared")
     torch.cuda.synchronize()
     tris = lt._tiles_with_dummy(cs)
     bounce = max(cap.tiles["block_tiles"], key=lambda c: c[-1].shape[0])
@@ -720,7 +752,7 @@ def grad_phase(kernels, card, scene, cam, cfg, key, tile_key, px0, py0,
     def tile(impl=None):
         s, d = with_diffuse()
         rad = pt.render_rays(s, cam, px0, py0, W, H, tile_key, 1, BOUNCES,
-                             impl=impl)
+                             estimator="shared", impl=impl)
         rad.mean().backward()
         return rad.detach(), d.grad
 
@@ -744,7 +776,8 @@ def grad_phase(kernels, card, scene, cam, cfg, key, tile_key, px0, py0,
         s = scene.with_materials(dataclasses.replace(mats, diffuse=d))
         with torch.no_grad():
             return float(pt.render_rays(s, cam, px0, py0, W, H, tile_key, 1,
-                                        BOUNCES).double().mean())
+                                        BOUNCES, estimator="shared")
+                         .double().mean())
 
     fd = (tile_mean(eps) - tile_mean(-eps)) / (2 * eps)
     ad = float(g_k[2, 0])
@@ -753,6 +786,196 @@ def grad_phase(kernels, card, scene, cam, cfg, key, tile_key, px0, py0,
     if not abs(ad - fd) <= 2e-3 + 0.05 * abs(fd):
         raise RuntimeError("AD disagrees with the finite difference")
     log(f"phase 7 took {time.perf_counter() - t7:.1f} s, card {card}")
+
+
+def parity_phase(card, scene, cam, key, tile_key, px0, py0, shared_mean):
+    """Phase 8: the parity estimator and every other backend (see the
+    module docstring).  Returns {kernel name: {launches, ms, device_ms,
+    bound_ms}} of the parity flagship frame."""
+    import dataclasses
+
+    import torch
+
+    from sycl_ray_tracing_tpu_torch.models import pathtracer as pt
+    from sycl_ray_tracing_tpu_torch.models.scene import add_sphere
+    from sycl_ray_tracing_tpu_torch.ops import bvh as bvh_ops
+    from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as lt
+    from sycl_ray_tracing_tpu_torch.probes import bounds, frame
+    from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
+    from sycl_ray_tracing_tpu_torch.utils.procedural import dragon_scene
+
+    t8 = time.perf_counter()
+    dev = px0.device
+
+    def timed_render(s, cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, aux = pt.render(s, cam, cfg, key, with_aux=True)
+        torch.cuda.synchronize()
+        return img, aux, time.perf_counter() - t0
+
+    def tile_pair(s, estimator, label, px=px0, py=py0):
+        """One 32768-ray tile through the kernels and the plain versions:
+        the radiance must be bit-identical."""
+        out = [pt.render_rays(s, cam, px, py, W, H, tile_key, 1, BOUNCES,
+                              backend="list", estimator=estimator,
+                              with_aux=True, impl=impl)
+               for impl in (None, "plain")]
+        torch.cuda.synchronize()
+        same = torch.equal(out[0][0], out[1][0])
+        log(f"phase 8 {label}: {out[0][0].shape[0]} rays x {BOUNCES} "
+            f"bounces, radiance bit-identical between kernels and plain "
+            f"versions={same}, overflow {bool(out[0][1]['overflow'])}/"
+            f"{bool(out[1][1]['overflow'])}, mean "
+            f"{float(out[0][0].mean()):.6f}")
+        if not same:
+            raise RuntimeError(f"{label}: radiance differs between kernels "
+                               "and plain versions")
+
+    # (a) the parity flagship frame
+    cfg = RenderConfig(W, H, samples=1, bounces=BOUNCES, intersect="list",
+                       estimator="parity", tile_rays=TILE)
+    _img, _aux, cold = timed_render(scene, cfg)
+    del _img, _aux
+    lt.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    img, aux, frame_s = timed_render(scene, cfg)
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(lt.LAUNCHES)
+    mean = float(img.mean())
+    finite = bool(torch.isfinite(img).all())
+    log(f"phase 8 parity frame: {tuple(img.shape)} finite={finite} "
+        f"mean={mean:.6f} (phase 3's shared frame: {shared_mean:.6f}) "
+        f"overflow={aux['overflow']} launches={launches}")
+    log(f"phase 8 parity frame time {frame_s * 1e3:.1f} ms warm "
+        f"({cold * 1e3:.1f} ms first), "
+        f"{W * H * BOUNCES / frame_s / 1e6:.3f} Mrays/s ({W}x{H}x1spp "
+        f"x{BOUNCES} bounces / frame time), peak device memory "
+        f"{peak / 2**30:.2f} GiB ({before / 2**30:.2f} GiB held before the "
+        f"frame), card {card}")
+    if not finite or aux["overflow"] or tuple(img.shape) != (H, W, 3):
+        raise RuntimeError("the parity frame failed its checks")
+    if min(launches.values()) < 1:
+        raise RuntimeError(f"a list kernel never launched in the parity "
+                           f"frame: {launches}")
+    del img
+    # one more frame with every list-kernel launch timed and bounded, and
+    # one under the profiler
+    with LaunchTimer(lt) as timer:
+        pt.render(scene, cam, cfg, key)
+    per_frame = timer.per_kernel(bounds)
+    prof = frame.profile(lambda: pt.render(scene, cam, cfg, key))
+    parity = {}
+    for name, (n, ms, h_ms, b_ms) in per_frame.items():
+        pn, dev_ms, top = prof["kernels"][f"{name}_kernel"]
+        log(f"phase 8 parity per frame {name}: {n} launches, {ms:.4f} ms "
+            f"kernel (CUDA events around each launch), {dev_ms:.4f} ms "
+            f"device time ({pn} launches, the longest {top:.4f} ms; "
+            f"profiler), {b_ms:.4f} ms sum of per-launch bounds, "
+            f"{h_ms:.4f} ms on the host clock inside the wrapper ({card})")
+        parity[name] = dict(launches=launches[name], ms=ms, device_ms=dev_ms,
+                            bound_ms=b_ms)
+    for line in frame.report(prof, "phase 8 profiled parity", card):
+        log(line)
+
+    # (b) a parity tile, kernels against plain versions
+    tile_pair(scene, "parity", "parity tile")
+
+    # (c) spheres at full width, through the fused list path; the tile
+    # that holds them starts at row 9/16 of the image
+    sph = scene
+    for center, radius, mat in SPHERES:
+        sph = add_sphere(sph, center, radius, **mat)
+    first = H * 9 // 16 * W
+    pix = torch.arange(first, first + TILE, device=dev)
+    px_s = (pix % W).to(torch.float32)
+    py_s = torch.div(pix, W, rounding_mode="floor").to(torch.float32)
+    o, d = cam.generate_rays(px_s + 0.5, py_s + 0.5, W, H)
+    prim = pt.intersect_scene(sph, o, d, "list").prim
+    on_spheres = int((prim >= sph.num_triangles).sum())
+    cfg_s = RenderConfig(W, H, samples=1, bounces=BOUNCES, intersect="list",
+                         estimator="shared", tile_rays=TILE)
+    timed_render(sph, cfg_s)
+    img, aux, frame_s = timed_render(sph, cfg_s)
+    finite = bool(torch.isfinite(img).all())
+    log(f"phase 8 spheres: {sph.num_spheres} spheres, {on_spheres} of the "
+        f"{o.shape[0]} primary rays of the tile from row {first // W} end "
+        f"on one; frame "
+        f"{frame_s * 1e3:.1f} ms warm, mean {float(img.mean()):.6f} "
+        f"finite={finite} overflow={aux['overflow']} ({card})")
+    if not finite or aux["overflow"] or on_spheres == 0:
+        raise RuntimeError("the sphere frame failed its checks")
+    del img
+    tile_pair(sph, "shared", f"sphere tile (from row {first // W})", px_s,
+              py_s)
+
+    # (d) more than 2048 materials: the unfused path against the fused
+    # one; the fused loop runs uncompacted so both give each ray the same
+    # lanes (and with them the same draws)
+    m = scene.materials
+    padded = scene.with_materials(dataclasses.replace(m, **{
+        f: torch.cat([x, x[:1].repeat(2049 - m.count,
+                                      *([1] * (x.dim() - 1)))])
+        for f, x in vars(m).items()}))
+    old_min_b = pt.COMPACT_MIN_B
+    pt.COMPACT_MIN_B = 1 << 30
+    try:
+        rads = [pt.render_rays(s, cam, px0, py0, W, H, tile_key, 1, BOUNCES,
+                               backend="list", estimator="shared")
+                for s in (scene, padded)]
+    finally:
+        pt.COMPACT_MIN_B = old_min_b
+    close = torch.isclose(rads[1], rads[0], rtol=1e-3, atol=1e-3).all(-1)
+    share = float(close.float().mean())
+    m0, m1 = float(rads[0].mean()), float(rads[1].mean())
+    log(f"phase 8 unfused tile ({padded.materials.count} materials) against "
+        f"the fused one: {share:.4%} of rays within 1e-3, means {m1:.6f} / "
+        f"{m0:.6f}")
+    if share < 0.99 or abs(m1 - m0) > 0.01 * abs(m0):
+        raise RuntimeError("the unfused path disagrees with the fused one")
+
+    # (e) the backends against each other on a small scene
+    small = dragon_scene(SMALL_TRIS, with_sky=True, build_accel=False,
+                         device=dev)
+    for center, radius, mat in SPHERES:
+        small = add_sphere(small, center, radius, **mat)
+    t0 = time.perf_counter()
+    small = small.build_acceleration(num_rays_hint=TILE)
+    small = small.with_bvh(bvh_ops.build_bvh(
+        small.triangles.cpu().numpy(), device=dev))
+    log(f"phase 8 backends: {small.num_triangles} triangles, "
+        f"{small.num_spheres} spheres, {small.clusters.num_clusters} "
+        f"clusters, pair budgets {small.clusters.p1_budget}/"
+        f"{small.clusters.p2_budget}, SAH BVH of {small.bvh.num_nodes} "
+        f"nodes; built in {time.perf_counter() - t0:.1f} s")
+    for est in ("shared", "parity"):
+        imgs = {}
+        for be in ("brute", "list", "cluster", "bvh"):
+            cfg_b = RenderConfig(SMALL_W, SMALL_W, samples=SMALL_SPP,
+                                 bounces=SMALL_BOUNCES, intersect=be,
+                                 estimator=est, tile_rays=TILE)
+            bvh_ops.reset_walk_steps()
+            img, aux, frame_s = timed_render(small, cfg_b)
+            steps = (f", BVH lockstep steps {dict(bvh_ops.WALK_STEPS)}"
+                     if be == "bvh" else "")
+            log(f"phase 8 backends {est} {be}: {frame_s * 1e3:.1f} ms (first "
+                f"call), mean {float(img.mean()):.6f}, overflow="
+                f"{aux['overflow']}{steps} ({card})")
+            if aux["overflow"] or not bool(torch.isfinite(img).all()):
+                raise RuntimeError(f"backend {be} ({est}) failed its checks")
+            imgs[be] = img
+        for be in ("list", "cluster", "bvh"):
+            bad = ~torch.isclose(imgs[be], imgs["brute"], rtol=2e-4,
+                                 atol=1e-5)
+            log(f"phase 8 backends {est} {be} against brute: {int(bad.sum())}"
+                f" of {bad.numel()} values outside rtol 2e-4 / atol 1e-5, "
+                f"max |d| {max_abs_err(imgs[be], imgs['brute']):.3g}")
+            if bool(bad.any()):
+                raise RuntimeError(f"backend {be} ({est}) disagrees with "
+                                   "brute force")
+    log(f"phase 8 took {time.perf_counter() - t8:.1f} s, card {card}")
+    return parity
 
 
 def main() -> int:
@@ -851,7 +1074,8 @@ def main() -> int:
 
         # ---- phase 2: kernels vs plain versions at main-path shapes ----
         with Capture(lt) as cap:
-            pt.render_rays(scene, cam, px0, py0, W, H, tile_key, 1, 1)
+            pt.render_rays(scene, cam, px0, py0, W, H, tile_key, 1, 1,
+                           estimator="shared")
         torch.cuda.synchronize()
         blocks = cap.tiles["block_tiles"]
         lists = cap.tiles["list_tiles"]
@@ -978,9 +1202,11 @@ def main() -> int:
 
         # ---- phase 4: one 8-bounce tile, kernels vs plain versions ----
         rad_k, aux_k = pt.render_rays(scene, cam, px0, py0, W, H, tile_key,
-                                      1, BOUNCES, with_aux=True)
+                                      1, BOUNCES, estimator="shared",
+                                      with_aux=True)
         rad_p, aux_p = pt.render_rays(scene, cam, px0, py0, W, H, tile_key,
-                                      1, BOUNCES, with_aux=True, impl="plain")
+                                      1, BOUNCES, estimator="shared",
+                                      with_aux=True, impl="plain")
         torch.cuda.synchronize()
         same = torch.equal(rad_k, rad_p)
         log(f"phase 4 tile: {rad_k.shape[0]} rays x {BOUNCES} bounces, "
@@ -1142,6 +1368,13 @@ def main() -> int:
     # ---- phase 7: the backward pass (bench.py section 2) ----
     grad_phase(kernels, card, scene, cam, cfg, key, tile_key, px0, py0,
                launches, (fwd_peak - fwd_before) / 2**30)
+
+    # ---- phase 8: the parity estimator and the other backends ----
+    with torch.no_grad():
+        parity = parity_phase(card, scene, cam, key, tile_key, px0, py0,
+                              mean)
+    for entry in kernels[:2]:
+        entry["frame_parity"] = parity[entry["name"]]
 
     for k in kernels:
         del k["ops"], k["bytes"]

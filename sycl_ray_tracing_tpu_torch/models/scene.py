@@ -14,11 +14,18 @@ from typing import Optional
 import numpy as np
 import torch
 
+from sycl_ray_tracing_tpu_torch.ops.bvh import (
+    BVH_FIELDS,
+    ThreadedBVH,
+    bvh_from_numpy,
+)
 from sycl_ray_tracing_tpu_torch.ops.cluster import (
     CLUSTER_FIELDS,
+    CLUSTER_STATIC,
     ClusterScene,
     build_cluster_arrays,
     clusters_from_numpy,
+    default_budgets,
 )
 from sycl_ray_tracing_tpu_torch.ops.envmap import (
     EnvMapSampler,
@@ -74,8 +81,9 @@ def make_materials(emission, diffuse, metalness, roughness,
 
 @dataclasses.dataclass(frozen=True)
 class Scene:
-    """Complete render scene (triangles only: analytic spheres are not
-    ported yet, ROADMAP Queue 1, item 4).  ``slot_packed`` [K2,T] i32 is the
+    """Complete render scene.  ``material_indices`` maps triangle index ->
+    material row, ``sphere_material`` sphere index -> material row (the
+    spheres are empty unless given).  ``slot_packed`` [K2,T] i32 is the
     cluster-slot shading table aligned with ``clusters.cl_tri_idx``:
     tri_idx | material_id << 20, so one gather by the list tracer's packed
     (cluster, lane) winner resolves primitive and material."""
@@ -88,6 +96,19 @@ class Scene:
     clusters: Optional[ClusterScene] = None
     tri_areas: Optional[torch.Tensor] = None   # [N]
     slot_packed: Optional[torch.Tensor] = None
+    sphere_centers: Optional[torch.Tensor] = None   # [S,3] (None: empty)
+    sphere_radii: Optional[torch.Tensor] = None     # [S]
+    sphere_material: Optional[torch.Tensor] = None  # [S] int32
+    bvh: Optional[ThreadedBVH] = None
+
+    def __post_init__(self):
+        dev = self.triangles.device
+        for name, shape, dtype in (("sphere_centers", (0, 3), torch.float32),
+                                   ("sphere_radii", (0,), torch.float32),
+                                   ("sphere_material", (0,), torch.int32)):
+            if getattr(self, name) is None:
+                object.__setattr__(self, name, torch.zeros(
+                    shape, dtype=dtype, device=dev))
 
     @property
     def device(self) -> torch.device:
@@ -98,11 +119,18 @@ class Scene:
         return self.triangles.shape[0]
 
     @property
+    def num_spheres(self) -> int:
+        return self.sphere_centers.shape[0]
+
+    @property
     def num_lights(self) -> int:
         return self.emissive_indices.shape[0]
 
     def with_clusters(self, clusters) -> "Scene":
         return dataclasses.replace(self, clusters=clusters)
+
+    def with_bvh(self, bvh) -> "Scene":
+        return dataclasses.replace(self, bvh=bvh)
 
     def with_materials(self, materials: Materials) -> "Scene":
         """The same scene with other materials (for example ones whose
@@ -116,11 +144,20 @@ class Scene:
         return dataclasses.replace(
             self, env_map=build_sampler(image, self.device))
 
-    def build_acceleration(self, order="sah") -> "Scene":
+    def build_acceleration(self, num_rays_hint: int = 32768,
+                           order="sah") -> "Scene":
         """Build the clustered acceleration structure (native SAH leaf
-        order by default) and the cluster-slot shading table."""
-        arrays = build_cluster_arrays(self.triangles.cpu().numpy(), order)
-        scene = self.with_clusters(clusters_from_numpy(arrays, self.device))
+        order by default), its pair budgets and the cluster-slot shading
+        table (scene.py:124-142).  ``num_rays_hint`` sizes the pair
+        tracer's static budgets and must be the wavefront TILE size
+        (RenderConfig.tile_rays), not the image size: its phase-3 gather
+        holds p2_budget rows of 1152 floats (2.7 GB at 32768)."""
+        arrays = build_cluster_arrays(self.triangles.detach().cpu().numpy(),
+                                      order)
+        p1, p2 = default_budgets(num_rays_hint, arrays["sc_box"].shape[0])
+        clusters = clusters_from_numpy(arrays, self.device, p1_budget=p1,
+                                       p2_budget=p2)
+        scene = self.with_clusters(clusters)
         return dataclasses.replace(scene, slot_packed=_slot_table(scene))
 
 
@@ -141,7 +178,8 @@ def _slot_table(scene: Scene) -> Optional[torch.Tensor]:
 
 
 def make_scene(triangles, material_indices, materials: Materials,
-               emissive_indices=None, env_map_image=None,
+               emissive_indices=None, sphere_centers=None, sphere_radii=None,
+               sphere_material=None, env_map_image=None,
                device="cuda") -> Scene:
     """Assemble a Scene from host arrays, deriving emissive indices from
     material emission if not given (reference utils.cpp:58-69)."""
@@ -149,12 +187,21 @@ def make_scene(triangles, material_indices, materials: Materials,
     tris = np.asarray(triangles, np.float32)
     mi = np.asarray(material_indices, np.int32)
     if emissive_indices is None:
-        em = materials.emission.cpu().numpy()
+        em = materials.emission.detach().cpu().numpy()
         is_emissive = (em[mi] > 0.0).any(axis=-1)
         # row 0 is the debug material, never a light
         is_emissive &= mi > 0
         emissive_indices = np.nonzero(is_emissive)[0]
     triangles_t = torch.as_tensor(tris, device=device)
+    spheres = {}
+    if sphere_centers is not None:
+        spheres = dict(
+            sphere_centers=torch.as_tensor(
+                np.asarray(sphere_centers, np.float32), device=device),
+            sphere_radii=torch.as_tensor(
+                np.asarray(sphere_radii, np.float32), device=device),
+            sphere_material=torch.as_tensor(
+                np.asarray(sphere_material, np.int32), device=device))
     return Scene(
         triangles=triangles_t,
         materials=materials,
@@ -164,6 +211,35 @@ def make_scene(triangles, material_indices, materials: Materials,
         env_map=(None if env_map_image is None
                  else build_sampler(env_map_image, device)),
         tri_areas=triangle_area(triangles_t),
+        **spheres,
+    )
+
+
+def add_sphere(scene: Scene, center, radius: float,
+               emission=(0.0, 0.0, 0.0), diffuse=(1.0, 1.0, 1.0),
+               metalness: float = 0.0, roughness: float = 0.5) -> Scene:
+    """Insert an analytic sphere with a material row of its own (the
+    reference's add_sphere_to_scene, main.cpp:20-30; scene.py:220-255)."""
+    dev = scene.device
+    mats = scene.materials
+
+    def row(x):
+        return torch.tensor([x], dtype=torch.float32, device=dev)
+
+    new_mats = Materials(
+        emission=torch.cat([mats.emission, row(emission)]),
+        diffuse=torch.cat([mats.diffuse, row(diffuse)]),
+        metalness=torch.cat([mats.metalness, row(metalness)]),
+        roughness=torch.cat([mats.roughness, row(max(1e-2, roughness))]),
+    )
+    return dataclasses.replace(
+        scene,
+        materials=new_mats,
+        sphere_centers=torch.cat([scene.sphere_centers, row(center)]),
+        sphere_radii=torch.cat([scene.sphere_radii, row(radius)]),
+        sphere_material=torch.cat([
+            scene.sphere_material,
+            torch.tensor([mats.count], dtype=torch.int32, device=dev)]),
     )
 
 
@@ -172,11 +248,12 @@ def scene_from_numpy(arrays: dict, device) -> Scene:
 
     Keys: ``triangles``, ``material_indices``, ``emissive_indices``,
     ``emission``, ``diffuse``, ``metalness``, ``roughness``, ``tri_areas``;
-    optionally the env sampler's tables under ``env_<field>`` (image,
-    row_cdf, cond_cdf, total, cond_blk, cond_fine), the cluster tables
-    under their ClusterScene names plus ``list_maxc``, and
-    ``slot_packed``.  Spheres (``sphere_radii`` non-empty) are not ported
-    and raise."""
+    optionally ``sphere_centers``, ``sphere_radii``, ``sphere_material``;
+    the env sampler's tables under ``env_<field>`` (image, row_cdf,
+    cond_cdf, total, cond_blk, cond_fine); the cluster tables under their
+    ClusterScene names plus ``list_maxc``, ``p1_budget``, ``p2_budget``
+    and ``fanout``; ``slot_packed``; and a BVH's tables under
+    ``bvh_<field>`` plus ``bvh_leaf_size``."""
     def t(name, dtype):
         return torch.tensor(np.asarray(arrays[name], dtype), device=device)
 
@@ -188,12 +265,16 @@ def scene_from_numpy(arrays: dict, device) -> Scene:
     if "cl_tris" in arrays:
         clusters = clusters_from_numpy(
             {f: arrays[f] for f in CLUSTER_FIELDS}, device,
-            list_maxc=int(arrays.get("list_maxc", 0)),
-        )
-    n_sph = np.asarray(arrays.get("sphere_radii", np.zeros(0))).shape[0]
-    if n_sph:
-        raise NotImplementedError(
-            "spheres are not ported yet (ROADMAP Queue 1, item 4)")
+            **{k: arrays[k] for k in CLUSTER_STATIC if k in arrays})
+    bvh = None
+    if "bvh_nodes_box" in arrays:
+        bvh = bvh_from_numpy({f: arrays[f"bvh_{f}"] for f in BVH_FIELDS},
+                             device, int(arrays.get("bvh_leaf_size", 4)))
+    spheres = {}
+    if "sphere_centers" in arrays:
+        spheres = dict(sphere_centers=t("sphere_centers", np.float32),
+                       sphere_radii=t("sphere_radii", np.float32),
+                       sphere_material=t("sphere_material", np.int32))
     return Scene(
         triangles=t("triangles", np.float32),
         materials=Materials(
@@ -209,4 +290,6 @@ def scene_from_numpy(arrays: dict, device) -> Scene:
         tri_areas=t("tri_areas", np.float32),
         slot_packed=(t("slot_packed", np.int32) if "slot_packed" in arrays
                      else None),
+        bvh=bvh,
+        **spheres,
     )

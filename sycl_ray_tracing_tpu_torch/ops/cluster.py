@@ -19,6 +19,16 @@ Every step is row-local (block-local), so each build runs in row chunks
 to bound its [rows, columns] transients; chunking does not change any
 result.
 
+The XLA pair tracer (the "cluster" backend, cluster.py:207-416,
+:922-976) is plain torch too: a dense [B,K1] supercluster slab test,
+the exact stream compaction of the hit (ray, supercluster) pairs into a
+static ``p1_budget``, the [P1,64] child-box test (or, with ``fanout``,
+each pair's ``fanout`` nearest children), the compaction of the hit
+(ray, cluster) pairs into ``p2_budget``, Möller–Trumbore on each pair's
+128 triangles, and segment reductions (``scatter_reduce`` amin / amax)
+back to rays.  A pair past a budget is dropped and raises the overflow
+flag, as in the JAX package.
+
 Left out: the approximate-recall extraction (every list-tracer pass asks
 for exact extraction).
 """
@@ -30,7 +40,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from sycl_ray_tracing_tpu_torch.ops.intersect import BIG_T
+from sycl_ray_tracing_tpu_torch.ops.intersect import (
+    BIG_T,
+    Hit,
+    _mt_scalar,
+    finalize_hit,
+)
 from sycl_ray_tracing_tpu_torch.ops.safe_math import EPS
 from sycl_ray_tracing_tpu_torch.utils.device import resolve_device
 
@@ -54,6 +69,12 @@ class ClusterScene:
     # per-ray candidate-list depth override for the list tracer (0 = module
     # defaults): the overflow-regrow knob of the JAX package
     list_maxc: int = 0
+    # the pair tracer's static (ray, supercluster) and (ray, cluster) pair
+    # budgets (build_clusters' defaults), and its per-pair child cap
+    # (0 = every hit child, the exact path)
+    p1_budget: int = 16 * 1024
+    p2_budget: int = 64 * 1024
+    fanout: int = 0
 
     @property
     def num_clusters(self) -> int:
@@ -66,16 +87,25 @@ class ClusterScene:
     def with_list_maxc(self, maxc: int) -> "ClusterScene":
         return dataclasses.replace(self, list_maxc=maxc)
 
+    def with_budgets(self, p1: int, p2: int) -> "ClusterScene":
+        return dataclasses.replace(self, p1_budget=p1, p2_budget=p2)
+
+    def with_fanout(self, f: int) -> "ClusterScene":
+        return dataclasses.replace(self, fanout=f)
+
 
 CLUSTER_FIELDS = ("sc_box", "cl_box_rows", "cl_box", "cl_tris", "cl_tri_idx")
+# the static fields scene_from_numpy carries beside the tables
+CLUSTER_STATIC = ("list_maxc", "p1_budget", "p2_budget", "fanout")
 
 
-def clusters_from_numpy(arrays: dict, device, list_maxc: int = 0):
-    """ClusterScene from host arrays named like its tensor fields."""
+def clusters_from_numpy(arrays: dict, device, **static):
+    """ClusterScene from host arrays named like its tensor fields;
+    ``static``: any of CLUSTER_STATIC."""
     return ClusterScene(
         **{f: torch.tensor(np.asarray(arrays[f]), device=device)
            for f in CLUSTER_FIELDS},
-        list_maxc=list_maxc,
+        **{k: int(v) for k, v in static.items()},
     )
 
 
@@ -505,3 +535,195 @@ def _hier_rows(scene: ClusterScene, ray_o, inv_d, t_lim, maxc: int,
     cand[:, -1] = torch.where(row_of & (cand[:, -1] < 0), 0, cand[:, -1])
     ctn[:, -1] = torch.where(row_of, -BIG_T, ctn[:, -1])
     return cand, ctn, sc_of.any() | of2, covered
+
+
+# ---- the XLA pair tracer (the "cluster" backend) ----
+
+def default_budgets(num_rays: int, k1: int):
+    """Pair budgets sized from the densities measured on the dragon at
+    T=128 (cluster.py:207-213): surface-origin rays average ~5
+    supercluster pairs and ~13 cluster pairs a ray."""
+    p1 = min(num_rays * 8, num_rays * max(1, k1))
+    p2 = num_rays * 18
+    return p1, p2
+
+
+def _compact_mask(mask2d, budget: int, payload=None):
+    """Stream-compact the True positions of mask [A,C] into (row [P],
+    col [P], valid [P], overflow[, payload rows [P,D]]) with P = budget,
+    row-major, EXACT (cluster.py:419-470): output slot q finds its row by a
+    binary search of the rows' inclusive count ends and its column by the
+    rank of q within that row.  Slots past the total come back invalid on
+    the last row."""
+    A, C = mask2d.shape
+    dev = mask2d.device
+    cum = torch.cumsum(mask2d.to(torch.int32), dim=1, dtype=torch.int32)
+    counts = cum[:, -1]
+    ends = torch.cumsum(counts, dim=0, dtype=torch.int32)
+    total = ends[-1]
+    base = ends - counts
+    q = torch.arange(budget, dtype=torch.int32, device=dev)
+    row = torch.searchsorted(ends, q, right=True).to(torch.int32)
+    rowc = torch.clamp_max(row, A - 1)
+    parts = [base[:, None], cum]
+    if payload is not None:
+        parts.append(payload.to(torch.int32))
+    cumx_g = torch.cat(parts, dim=1)[rowc.long()]         # [P, C+1(+D)]
+    j = q - cumx_g[:, 0]
+    col = (cumx_g[:, 1:C + 1] <= j[:, None]).sum(dim=1, dtype=torch.int32)
+    col = torch.clamp_max(col, C - 1)
+    valid = q < total
+    if payload is not None:
+        return rowc, col, valid, total > budget, cumx_g[:, C + 1:]
+    return rowc, col, valid, total > budget
+
+
+def _expand_pairs(mask, budget: int):
+    """mask [A,C] -> (row [P], col [P], valid [P], overflow); invalid
+    entries carry (A, C) (cluster.py:232-239)."""
+    r, c, valid, overflow = _compact_mask(mask, budget)
+    r = torch.where(valid, r, mask.shape[0])
+    c = torch.where(valid, c, mask.shape[1])
+    return r, c, valid, overflow
+
+
+def _build_pairs(scene: ClusterScene, ray_o, ray_d, t_lim):
+    """Phases 1-2: culling and pair expansion (cluster.py:247-352).
+    Returns (r2 [P2] ray ids (B where invalid), c2 [P2] cluster ids,
+    valid2 [P2], rays12 [B,12] packed ray rows, overflow)."""
+    B = ray_o.shape[0]
+    S = S_CLUSTER
+    inv_d = inv_dir(ray_d)
+    # packed per-ray rows: o(3) d(3) inv(3) t_lim(1) pad(2)
+    rays12 = torch.cat([ray_o, ray_d, inv_d, t_lim[:, None],
+                        torch.zeros((B, 2), dtype=ray_o.dtype,
+                                    device=ray_o.device)], dim=1)
+    # phase 1: dense supercluster tests
+    m1, _ = dense_box_mask(scene.sc_box, ray_o, inv_d, t_lim)    # [B,K1]
+    r1, s1, valid1, of1 = _expand_pairs(m1, scene.p1_budget)
+    r1c = torch.clamp_max(r1, B - 1)
+    s1c = torch.clamp_max(s1, scene.num_superclusters - 1)
+    # phase 2: each pair's 64 child boxes from one planar row
+    rowsb = scene.cl_box_rows[s1c.long()]                         # [P1,8S]
+    rg1 = rays12[r1c.long()]                                      # [P1,12]
+    box = [rowsb[:, k * S:(k + 1) * S] for k in range(6)]
+    hit2, tnear = _slab_test(box, [rg1[:, a:a + 1] for a in range(3)],
+                             [rg1[:, 6 + a:7 + a] for a in range(3)],
+                             rg1[:, 9:10])
+    m2 = hit2 & valid1[:, None]                                   # [P1,S]
+    if scene.fanout > 0:
+        # each pair's ``fanout`` nearest hit children by argmin rounds;
+        # a pair with more hit children overflows
+        F = scene.fanout
+        lanes = torch.arange(S, device=m2.device)[None]
+        m = m2
+        sel_cols, sel_ok = [], []
+        for _ in range(F):
+            c = torch.argmin(torch.where(m, tnear, BIG_T), dim=1)  # [P1]
+            sel_ok.append(torch.gather(m, 1, c[:, None])[:, 0])
+            sel_cols.append(c.to(torch.int32))
+            m = m & (lanes != c[:, None])
+        of_fanout = m.any()
+        mF = torch.stack(sel_ok, dim=1)                           # [P1,F]
+        cF = torch.stack(sel_cols, dim=1)
+        payload = torch.cat([r1c[:, None], s1c[:, None], cF], dim=1)
+        _p2c, f_idx, valid2, of2, pay = _compact_mask(
+            mF, scene.p2_budget, payload)
+        c2_local = torch.gather(pay[:, 2:], 1,
+                                torch.clamp_max(f_idx, F - 1)[:, None]
+                                .long())[:, 0]
+        of2 = of2 | of_fanout
+    else:
+        payload = torch.cat([r1c[:, None], s1c[:, None]], dim=1)
+        _p2c, c2_local, valid2, of2, pay = _compact_mask(
+            m2, scene.p2_budget, payload)
+        c2_local = torch.clamp_max(c2_local, S - 1)
+    r2 = torch.where(valid2, pay[:, 0], B)
+    c2 = pay[:, 1] * S + c2_local
+    return r2, c2, valid2, rays12, of1 | of2
+
+
+def _mt_rows_scalar(tri_rows, o, d):
+    """Möller–Trumbore on planar triangle rows [P, 9*T] against per-row
+    rays o, d [P,3] -> t [P,T], BIG_T where invalid (cluster.py:473-519)."""
+    tri9 = tri_rows.view(tri_rows.shape[0], 9, T_CLUSTER).transpose(1, 2)
+    t, _u, _v, valid, _ = _mt_scalar(
+        o[:, 0:1], o[:, 1:2], o[:, 2:3], d[:, 0:1], d[:, 1:2], d[:, 2:3],
+        tri9)
+    return torch.where(valid, t, BIG_T)
+
+
+def _trace_pairs(scene: ClusterScene, ray_o, ray_d, t_lim):
+    """Phases 1-3 (cluster.py:355-370).  Returns (r2, c2, t [P2,T],
+    valid2, tl2 [P2], overflow)."""
+    B = ray_o.shape[0]
+    r2, c2, valid2, rays12, of = _build_pairs(scene, ray_o, ray_d, t_lim)
+    rg2 = rays12[torch.clamp_max(r2, B - 1).long()]               # [P2,12]
+    t = _mt_rows_scalar(scene.cl_tris[c2.long()], rg2[:, 0:3], rg2[:, 3:6])
+    t = torch.where(valid2[:, None], t, BIG_T)
+    return r2, c2, t, valid2, rg2[:, 9], of
+
+
+def _segment(values, seg, B: int, reduce: str, fill):
+    """Per-segment min/max of ``values`` by segment id ``seg`` in [0, B]
+    (row B collects the invalid pairs); empty segments keep ``fill``, the
+    reduction's identity."""
+    out = torch.full((B + 1,), fill, dtype=values.dtype,
+                     device=values.device)
+    return out.scatter_reduce(0, seg.long(), values, reduce=reduce,
+                              include_self=True)[:B]
+
+
+def _reduce_closest(scene: ClusterScene, B: int, r2, pair_t, pair_cl,
+                    valid2):
+    """Per-pair (t, packed winner) -> per-ray (t, prim) (cluster.py:
+    496-517): the per-ray minimum, then among the pairs at it the LARGEST
+    packed (cluster, lane) winner."""
+    best_t = torch.clamp_max(_segment(pair_t, r2, B, "amin", float("inf")),
+                             BIG_T)
+    is_best = (pair_t <= best_t[torch.clamp_max(r2, B - 1).long()]) & valid2
+    win = _segment(torch.where(is_best, pair_cl, -1), r2, B, "amax",
+                   torch.iinfo(torch.int32).min)
+    w = torch.clamp_min(win, 0).long()
+    best_prim = scene.cl_tri_idx[w // T_CLUSTER, w % T_CLUSTER]
+    best_prim = torch.where((best_t < BIG_T) & (win >= 0), best_prim, -1)
+    return best_t, best_prim
+
+
+@torch.no_grad()
+def closest_hit(scene: ClusterScene, ray_o, ray_d):
+    """Closest hit of rays [B,3] -> (t [B], prim [B] (-1 miss), overflow)
+    (cluster.py:922-938)."""
+    B = ray_o.shape[0]
+    t_lim = torch.full((B,), BIG_T, dtype=ray_o.dtype, device=ray_o.device)
+    r2, c2, t, valid2, _tl2, overflow = _trace_pairs(scene, ray_o, ray_d,
+                                                     t_lim)
+    pair_t = t.amin(dim=1)
+    lane = torch.argmin(t, dim=1).to(torch.int32)
+    best_t, best_prim = _reduce_closest(scene, B, r2, pair_t,
+                                        c2 * T_CLUSTER + lane, valid2)
+    return best_t, best_prim, overflow
+
+
+@torch.no_grad()
+def any_hit(scene: ClusterScene, ray_o, ray_d, t_max):
+    """Occlusion: True where a triangle lies at t < t_max - SHADOW_EPS.
+    Returns (blocked [B] bool, overflow: a pair budget was exceeded and
+    hits may have been dropped) (cluster.py:941-957)."""
+    B = ray_o.shape[0]
+    r2, _c2, t, valid2, tl2, overflow = _trace_pairs(
+        scene, ray_o, ray_d, t_max - SHADOW_EPS)
+    pair_hit = (t < tl2[:, None]).any(dim=1) & valid2
+    hits = _segment(pair_hit.to(torch.int32), r2, B, "amax", 0)
+    return hits > 0, overflow
+
+
+def intersect_clusters(scene: ClusterScene, tris, ray_o, ray_d,
+                       of: list | None = None) -> Hit:
+    """Closest hit with a differentiable hit record: the traversal records
+    no graph, ``finalize_hit`` re-intersects the winner (cluster.py:
+    960-976).  ``of``: optional list the overflow flag is appended to."""
+    _t, prim, overflow = closest_hit(scene, ray_o.detach(), ray_d.detach())
+    if of is not None:
+        of.append(overflow)
+    return finalize_hit(ray_o, ray_d, tris, prim)

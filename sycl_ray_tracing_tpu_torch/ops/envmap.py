@@ -149,6 +149,51 @@ def pdf_of_texel(sampler: EnvMapSampler, x, y, sin_theta):
     return pdf / torch.clamp_min(2.0 * math.pi * math.pi * sin_theta, 1e-8)
 
 
+def importance_split(image, min_bin_area: int, min_bin_radiance: float):
+    """Hierarchical radiance-bin splitting of an env map (the reference's
+    unused Utils::importance_split_skysphere, utils.cpp:197-247): halve
+    the image along its longer axis until a bin's summed luminance or area
+    falls under the thresholds.  Host-side numpy (envmap.py:228-274);
+    returns a list of (x0, x1, y0, y1) bins."""
+    if isinstance(image, torch.Tensor):
+        image = image.detach().cpu().numpy()
+    img = np.asarray(image, np.float32)
+    lum = 0.3086 * img[..., 0] + 0.6094 * img[..., 1] + 0.0820 * img[..., 2]
+    integral = lum.cumsum(axis=0).cumsum(axis=1)
+
+    def area_lum(x0, x1, y0, y1):
+        a = integral[y1 - 1, x1 - 1]
+        b = integral[y0 - 1, x1 - 1] if y0 > 0 else 0.0
+        c = integral[y1 - 1, x0 - 1] if x0 > 0 else 0.0
+        d = integral[y0 - 1, x0 - 1] if (x0 > 0 and y0 > 0) else 0.0
+        return a - b - c + d
+
+    out = []
+    stack = [(0, img.shape[1], 0, img.shape[0])]
+    while stack:
+        x0, x1, y0, y1 = stack.pop()
+        rad = area_lum(x0, x1, y0, y1)
+        # the true area (the reference squares the vertical extent,
+        # utils.cpp:201); the precedence of or/and is the JAX package's
+        if (
+            rad <= min_bin_radiance
+            or (x1 - x0) * (y1 - y0) <= min_bin_area
+            or (x1 - x0) < 2
+            and (y1 - y0) < 2
+        ):
+            out.append((x0, x1, y0, y1))
+            continue
+        if (y1 - y0) >= (x1 - x0):
+            ym = y0 + (y1 - y0) // 2
+            stack.append((x0, x1, y0, ym))
+            stack.append((x0, x1, ym, y1))
+        else:
+            xm = x0 + (x1 - x0) // 2
+            stack.append((x0, xm, y0, y1))
+            stack.append((xm, x1, y0, y1))
+    return out
+
+
 def pdf_of_direction(sampler: EnvMapSampler, direction):
     """pdf of a world direction under luminance sampling, using the true
     polar angle (y axis) as the JAX package does (render_kernel.cpp:617-623)."""

@@ -55,7 +55,7 @@ from sycl_ray_tracing_tpu_torch.ops.cluster import (
     candidate_clusters_hier,
     inv_dir,
 )
-from sycl_ray_tracing_tpu_torch.ops.intersect import BIG_T
+from sycl_ray_tracing_tpu_torch.ops.intersect import BIG_T, Hit, finalize_hit
 from sycl_ray_tracing_tpu_torch.ops.safe_math import EPS
 
 RB = 8             # per-ray pass: rays per sort block
@@ -641,6 +641,19 @@ def any_hit(scene: ClusterScene, ray_o, ray_d, t_max, maxc: int | None = None,
         mask=mask, share=share, escalate=escalate, impl=impl,
     )
     return packed >= 0, overflow
+
+
+def intersect_list(scene: ClusterScene, tris, ray_o, ray_d,
+                   of: list | None = None, mask=None, share=None,
+                   impl=None) -> Hit:
+    """Closest hit with a differentiable hit record (listtrace.py:900-912):
+    ``closest_hit`` records no graph, ``finalize_hit`` re-intersects the
+    winner.  ``of``: optional list the overflow flag is appended to."""
+    _t, prim, overflow = closest_hit(scene, ray_o.detach(), ray_d.detach(),
+                                     mask=mask, share=share, impl=impl)
+    if of is not None:
+        of.append(overflow)
+    return finalize_hit(ray_o, ray_d, tris, prim)
 
 
 @torch.no_grad()

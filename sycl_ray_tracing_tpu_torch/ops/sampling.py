@@ -1,11 +1,14 @@
-"""Sampling primitives: ONB frames, MIS heuristic, triangle area sampling
-(counterpart of sycl_ray_tracing_tpu/ops/sampling.py)."""
+"""Sampling primitives: ONB frames, hemisphere samplers, MIS heuristic,
+triangle area sampling (counterpart of sycl_ray_tracing_tpu/ops/sampling.py;
+reference render_kernel.cpp:5-54, :513-518, :715-742)."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from sycl_ray_tracing_tpu_torch.ops.safe_math import cross, length
+from sycl_ray_tracing_tpu_torch.ops.safe_math import cross, length, safe_sqrt
 
 
 def branchless_onb(n: torch.Tensor):
@@ -31,6 +34,29 @@ def to_world(n: torch.Tensor, local_dir: torch.Tensor) -> torch.Tensor:
         + local_dir[..., 1:2] * bt
         + local_dir[..., 2:3] * n
     )
+
+
+def uniform_hemisphere(n: torch.Tensor, u1, u2):
+    """Uniform directions around normals; returns (dir, pdf)
+    (reference render_kernel.cpp:24-37)."""
+    phi = 2.0 * math.pi * u1
+    root = safe_sqrt(1.0 - u2 * u2)
+    local = torch.stack([torch.cos(phi) * root, torch.sin(phi) * root, u2],
+                        dim=-1)
+    pdf = torch.full_like(u1, 1.0 / (2.0 * math.pi))
+    return to_world(n, local), pdf
+
+
+def cosine_hemisphere(n: torch.Tensor, u1, u2):
+    """Cosine-weighted directions; returns (dir, pdf)
+    (reference render_kernel.cpp:39-54)."""
+    sqrt_u2 = safe_sqrt(u2)
+    phi = 2.0 * math.pi * u1
+    sin_t = safe_sqrt(torch.clamp_min(1.0 - sqrt_u2 * sqrt_u2, 0.0))
+    local = torch.stack(
+        [torch.cos(phi) * sin_t, torch.sin(phi) * sin_t, sqrt_u2], dim=-1
+    )
+    return to_world(n, local), sqrt_u2 / math.pi
 
 
 def power_heuristic(pdf_a, pdf_b):

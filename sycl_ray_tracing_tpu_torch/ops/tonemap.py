@@ -15,3 +15,8 @@ def tonemap(hdr: torch.Tensor, exposure: float = DEFAULT_EXPOSURE,
     """Exposure + gamma tone map of linear HDR radiance [...,3] -> [0,1]."""
     tone = 1.0 - torch.exp(-torch.clamp_min(hdr, 0.0) * exposure)
     return torch.pow(torch.clamp_min(tone, 0.0), 1.0 / gamma)
+
+
+def gamma_only(hdr: torch.Tensor, gamma: float = DEFAULT_GAMMA) -> torch.Tensor:
+    """Plain gamma correction (reference image_io.cpp gamma utility)."""
+    return torch.pow(torch.clamp(hdr, 0.0, 1.0), 1.0 / gamma)

@@ -21,8 +21,9 @@ class RenderConfig:
     height: int = 512
     samples: int = 64
     bounces: int = 8
-    # intersection backend; the port implements "list" only, and "auto"
-    # means "list" on a scene with clusters
+    # intersection backend: "list", "cluster", "bvh" or "brute"; "auto"
+    # means "list" on a scene with clusters, else "bvh" on a scene with a
+    # BVH, else "brute"
     intersect: str = "auto"
     # restrict render to one pixel for debugging (reference DEBUG_PIXEL)
     debug_pixel: Optional[Tuple[int, int]] = None

@@ -38,10 +38,16 @@ def jax_scene_arrays(scene) -> dict:
     if scene.env_map is not None:
         for f in scene.env_map._fields:
             a[f"env_{f}"] = getattr(scene.env_map, f)
+    if scene.num_spheres:
+        for f in ("sphere_centers", "sphere_radii", "sphere_material"):
+            a[f] = getattr(scene, f)
     if scene.clusters is not None:
-        for f in PC.CLUSTER_FIELDS:
+        for f in PC.CLUSTER_FIELDS + PC.CLUSTER_STATIC:
             a[f] = getattr(scene.clusters, f)
-        a["list_maxc"] = scene.clusters.list_maxc
+    if scene.bvh is not None:
+        for f in ("nodes_box", "nodes_meta", "leaf_tris", "tri_order",
+                  "leaf_size"):
+            a[f"bvh_{f}"] = getattr(scene.bvh, f)
     return {k: np.asarray(v) for k, v in a.items()}
 
 

@@ -267,7 +267,8 @@ def test_remat_matches_no_remat_and_never_traces_again(scenes, monkeypatch,
 
 def test_default_config_renders(scenes):
     """RenderConfig()'s intersect="auto" is the list tracer on a scene
-    with clusters; without clusters it raises, naming the ROADMAP item."""
+    with clusters; without clusters (and without a BVH) it is brute
+    force."""
     ps = scenes[1]
     kw = dict(width=4, height=4, samples=1, bounces=1, tile_rays=None)
     with torch.no_grad():
@@ -279,8 +280,14 @@ def test_default_config_renders(scenes):
     assert RenderConfig().intersect == "auto"
     assert torch.isfinite(auto).all() and torch.equal(auto, listed)
     bare = dataclasses.replace(ps, clusters=None)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        PP.render(bare, _port_camera(), RenderConfig(**kw), rng.prng_key(1))
+    with torch.no_grad():
+        auto = PP.render(bare, _port_camera(), RenderConfig(**kw),
+                         rng.prng_key(1))
+        brute = PP.render(bare, _port_camera(),
+                          RenderConfig(intersect="brute", **kw),
+                          rng.prng_key(1))
+    assert torch.isfinite(auto).all() and torch.equal(auto, brute)
+    torch.testing.assert_close(auto, listed, rtol=1e-4, atol=1e-6)
 
 
 def test_transforms_carry_a_tensor_argument_graph():

@@ -15,6 +15,7 @@ import torch
 
 from sycl_ray_tracing_tpu.models import pathtracer as JP
 from sycl_ray_tracing_tpu.models.camera import pbrt_dragon_camera as jax_cam
+from sycl_ray_tracing_tpu.models.scene import add_sphere as jax_add_sphere
 from sycl_ray_tracing_tpu.ops.pallas import listtrace as JL
 from sycl_ray_tracing_tpu.utils.config import RenderConfig as JaxConfig
 from sycl_ray_tracing_tpu.utils.procedural import dragon_scene as jax_dragon
@@ -22,6 +23,7 @@ from sycl_ray_tracing_tpu_torch.models import pathtracer as PP
 from sycl_ray_tracing_tpu_torch.models.camera import pbrt_dragon_camera
 from sycl_ray_tracing_tpu_torch.models.scene import scene_from_numpy
 from sycl_ray_tracing_tpu_torch.ops import rng
+from sycl_ray_tracing_tpu_torch.ops.bvh import build_bvh
 from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as PL
 from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
 from tests.test_torch_cluster import jax_scene_arrays
@@ -132,31 +134,73 @@ def test_render_debug_pixel_and_clamp(scenes):
     assert torch.isfinite(img).all() and (img <= 0.5).all()
 
 
+_KW_4X4 = dict(width=4, height=4, samples=1, bounces=1, tile_rays=None)
+
+
+@pytest.fixture(scope="module")
+def jax_4x4(scenes):
+    """JAX's brute-force bounces=1 4x4 frames of ``scenes`` at key 6, by
+    estimator, rendered once each."""
+    frames = {}
+
+    def get(estimator):
+        if estimator not in frames:
+            frames[estimator] = np.asarray(JP.render(
+                scenes[0], jax_cam(), JaxConfig(
+                    intersect="brute", estimator=estimator, **_KW_4X4),
+                jax.random.PRNGKey(6)))
+        return frames[estimator]
+    return get
+
+
+def _port_4x4(ps, **kw):
+    with torch.no_grad():
+        pi, aux = PP.render(ps, pbrt_dragon_camera("cpu"),
+                            RenderConfig(**_KW_4X4, **kw), rng.prng_key(6),
+                            with_aux=True)
+    assert aux["overflow"] is False
+    return pi.numpy()
+
+
 @pytest.mark.parametrize("what", ["intersect", "estimator", "materials"])
-def test_unported_paths_raise(scenes, what):
+def test_unported_paths_raise(scenes, jax_4x4, what):
+    """intersect="bvh" (a SAH BVH), estimator="parity" and 2049 materials
+    (the unfused shading; no primitive reads the padding rows) render
+    JAX's brute-force frame at the same key, per pixel."""
     _js, ps = scenes
-    cfg = RenderConfig(width=4, height=4, samples=1, bounces=1,
-                       intersect="list", tile_rays=None)
+    kw = dict(intersect="list", estimator="shared")
     if what == "intersect":
-        cfg = dataclasses.replace(cfg, intersect="bvh")
+        ps = ps.with_bvh(build_bvh(ps.triangles.numpy(), device="cpu"))
+        kw["intersect"] = "bvh"
     elif what == "estimator":
-        cfg = dataclasses.replace(cfg, estimator="parity")
+        kw["estimator"] = "parity"
     else:
         m = ps.materials
-        many = 2049
-        ps = dataclasses.replace(ps, materials=dataclasses.replace(
-            m, emission=m.emission[:1].repeat(many, 1),
-            diffuse=m.diffuse[:1].repeat(many, 1),
-            metalness=m.metalness[:1].repeat(many),
-            roughness=m.roughness[:1].repeat(many)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        with torch.no_grad():
-            PP.render(ps, pbrt_dragon_camera("cpu"), cfg, rng.prng_key(0))
+        ps = ps.with_materials(dataclasses.replace(m, **{
+            f: torch.cat([x, x[:1].repeat(2049 - m.count,
+                                          *([1] * (x.dim() - 1)))])
+            for f, x in vars(m).items()}))
+        assert ps.materials.count == 2049
+    ji = jax_4x4(kw["estimator"])
+    assert np.isfinite(ji).all() and ji.mean() > 1e-4
+    np.testing.assert_allclose(_port_4x4(ps, **kw), ji, rtol=1e-4,
+                               atol=1e-6)
 
 
 def test_spheres_raise(scenes):
+    """scene_from_numpy carries a JAX scene's spheres, and the fused list
+    path's sphere merges render the JAX package's brute-force frame."""
     js, _ps = scenes
+    js = jax_add_sphere(js, (0.0, 0.2, 0.5), 0.6, diffuse=(0.2, 0.9, 0.3))
     arrays = jax_scene_arrays(js)
-    arrays["sphere_radii"] = np.ones(1, np.float32)
-    with pytest.raises(NotImplementedError, match="spheres"):
-        scene_from_numpy(arrays, "cpu")
+    ps = scene_from_numpy(arrays, "cpu")
+    assert ps.num_spheres == 1
+    np.testing.assert_array_equal(ps.sphere_centers.numpy(),
+                                  arrays["sphere_centers"])
+    ji = np.asarray(JP.render(js, jax_cam(), JaxConfig(
+        intersect="brute", estimator="shared", **_KW_4X4),
+        jax.random.PRNGKey(6)))
+    assert np.isfinite(ji).all() and ji.mean() > 1e-4
+    np.testing.assert_allclose(
+        _port_4x4(ps, intersect="list", estimator="shared"), ji, rtol=1e-4,
+        atol=1e-6)

@@ -98,12 +98,46 @@ Phases (any failure exits non-zero):
      "bvh" and "brute": each frame's time (the BVH's lockstep steps too),
      overflow False, and every image within rtol 2e-4 / atol 1e-5 of
      brute force per pixel (tests/test_integrator.py:293-294).
+  9. The user's entry points, in a temporary directory that is the cwd
+     of every CLI call.  (a) The 200k scene written as OBJ + MTL and its
+     512x1024 sky as .hdr (upside down, so the CLI's flipped read gives
+     the scene's sky); the OBJ parsed by the native C++ parser and by the
+     Python one (equal arrays, each parse's ms), the sky read back equal
+     to RGBE precision.  (b) The CLI in-process (python -m
+     sycl_ray_tracing_tpu_torch.main dragon.obj --sky=sky.hdr --w=512
+     --h=512 --samples=4 --bounces=8 --camera=pbrt_dragon
+     --intersect=list --estimator=shared), the launch counters reset just
+     before: exit 0, no regrow warning (so overflow False), the five
+     outputs, RT_output.hdr equal to the rendered image to RGBE
+     precision, both list kernels launched; its scene_load, accel_build
+     and render seconds and Mrays/s; then the same call with every
+     list-kernel launch timed and bounded, and once under the profiler.
+     (c) One ProgressiveRenderer batch saved, the CLI resuming it to 2
+     spp (--checkpoint, --checkpoint-batch=1): bit-identical to the same
+     render without a break.  (d) The 4k scene as OBJ with clusters of
+     candidate depth 1: the CLI doubles the depth and ends with every ray
+     certified (no ERROR line).  (e) train.run on a one-rank NCCL group:
+     5 steps on the 200k scene + sky at 128x128, 4 spp, 2 bounces, the
+     launch counters reset just before (finite losses, finite nonzero
+     gradients, the diffuse error falls; both list kernels launched, none
+     inside the backward calls; every launch of step 0's forward held bit
+     for bit against the plain versions as it happens; seconds a step,
+     peak memory).  (f) render_sharded on that rank: the 200k frame at
+     512x512, 1 spp, 8 bounces in one render_rays call (block_tiles
+     launches of up to 786,432 rays), the counters reset just before and
+     every launch held bit for bit (both kernels launched), then again
+     for its time and peak memory (under 20 GB), the same image bit for
+     bit; its mean within 2% of phase 3's.
 
 The second-to-last lines are the card line and one JSON object describing
 each kernel (time, plain version's time, launches, and the bound: the
 least time an H100 could take for the same work); the last line is
 {"ok": true, "device": {...}}.  Each kernel's entry also carries its
-launches in the fwd+bwd frame (phase 7) and the parity frame (phase 8).
+launches in the fwd+bwd frame (phase 7), the parity frame (phase 8), the
+CLI frame (phase 9, "cli": launches, event ms, device ms, bound), the
+trainer ("train": launches, those in the backward, launches held, the
+largest held launch's rays, max |dt|) and render_sharded ("sharded": the
+same without the backward).
 Without CUDA, or without the rest of the
 repository beside it, the script exits 2 and prints no result.
 """
@@ -136,6 +170,18 @@ SMALL_TRIS = 4_000
 SMALL_W = 64
 SMALL_SPP = 2
 SMALL_BOUNCES = 3
+# phase 9: the CLI frame's samples, the sky's size, the regrow's starting
+# candidate depth, the trainer's frame and steps
+CLI_SPP = 4
+SKY_RES = (512, 1024)
+REGROW_MAXC = 1
+TRAIN_W = 128
+TRAIN_SPP = 4
+TRAIN_BOUNCES = 2
+TRAIN_STEPS = 5
+# what the CLI writes into its cwd
+CLI_OUTPUTS = ("RT_output.png", "RT_output.hdr", "RT_output_denoised_1.png",
+               "RT_output_denoised_0.75.png", "RT_output_denoised_0.5.png")
 BLOCK_REPLACES = "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:298"
 LIST_REPLACES = "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:245"
 
@@ -262,6 +308,127 @@ class RunWatch:
 
     def __exit__(self, *exc):
         self.lt._run = self._orig
+
+
+class HoldEach:
+    """While ``on``, every list-kernel launch of a run is held against its
+    plain version on the same inputs as it happens: the run's own launch
+    (through the wrapper, so counted once, as without the hold) must give
+    the plain version's (at, ar, stop) bit for bit.  Keeps no tensor of
+    the run; per kernel it keeps (launches held, rays of the largest, max
+    |dt|), and the seconds the holds took."""
+
+    def __init__(self, lt):
+        self.lt = lt
+        self.on = True
+        self.held = {"block_tiles": (0, 0, 0.0), "list_tiles": (0, 0, 0.0)}
+        self.seconds = 0.0
+        self._orig = {}
+
+    def __enter__(self):
+        import torch
+
+        def hook(name):
+            orig = self._orig[name] = getattr(self.lt, name)
+            plain = getattr(self.lt, f"{name}_plain")
+
+            def held(*args, **kw):
+                out = orig(*args, **kw)
+                if self.on and kw.get("impl") in (None, "cuda"):
+                    t0 = time.perf_counter()
+                    want = plain(*args[:4])
+                    same = all(torch.equal(a, b) for a, b in zip(out, want))
+                    n, rays, err = self.held[name]
+                    rays = max(rays, args[2].shape[0])
+                    err = max(err, max_abs_err(out[0], want[0]))
+                    self.held[name] = (n + 1, rays, err)
+                    self.seconds += time.perf_counter() - t0
+                    if not same:
+                        raise RuntimeError(
+                            f"{name} disagrees with its plain version on a "
+                            f"launch of {args[2].shape[0]} rays (max |dt| "
+                            f"{err})")
+                return out
+            return held
+
+        for name in self.held:
+            setattr(self.lt, name, hook(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.lt, name, fn)
+
+
+class BackwardWatch:
+    """Counts the list-kernel launches made inside torch.autograd.grad (a
+    train step's backward, remat replay included).  The first call ends
+    the forward that ``hold`` covers: it turns the hold off and resets the
+    peak-memory counter, so the peak read after the run is that of the
+    steps without holds."""
+
+    def __init__(self, lt, hold):
+        self.lt, self.hold = lt, hold
+        self.calls = 0
+        self.launches = {k: 0 for k in lt.LAUNCHES}
+
+    def __enter__(self):
+        import torch
+
+        self._orig = torch.autograd.grad
+
+        def grad(*args, **kw):
+            before = dict(self.lt.LAUNCHES)
+            out = self._orig(*args, **kw)
+            for k, n in self.lt.LAUNCHES.items():
+                self.launches[k] += n - before[k]
+            if not self.calls:
+                self.hold.on = False
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            self.calls += 1
+            return out
+
+        torch.autograd.grad = grad
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.autograd.grad = self._orig
+
+
+def write_obj(path: str, triangles, material_indices, materials) -> None:
+    """Write triangles [N,3,3], their material rows [N] and a Materials
+    table as OBJ + MTL (``path`` and ``path`` with .mtl), for the loader
+    to read back: three vertices per triangle (%.9g, exact for float32),
+    faces in order under one ``usemtl`` per run of a material, MTL
+    material k for row k >= 1 (row 0 is the loader's debug material)
+    with illum 2, so Pm and Pr are read."""
+    import numpy as np
+
+    tris = np.asarray(triangles, np.float32).reshape(-1, 3)
+    mi = np.asarray(material_indices)
+    mtl_path = os.path.splitext(path)[0] + ".mtl"
+    table = {f: np.asarray(getattr(materials, f).detach().cpu().numpy(),
+                           np.float32)
+             for f in ("emission", "diffuse", "metalness", "roughness")}
+    with open(mtl_path, "w") as f:
+        for k in range(1, table["emission"].shape[0]):
+            f.write(f"newmtl m{k}\n"
+                    "Kd {:.9g} {:.9g} {:.9g}\n".format(*table["diffuse"][k])
+                    + "Ke {:.9g} {:.9g} {:.9g}\n".format(*table["emission"][k])
+                    + f"Pm {table['metalness'][k]:.9g}\n"
+                    f"Pr {table['roughness'][k]:.9g}\nillum 2\n")
+    with open(path, "w") as f:
+        f.write(f"mtllib {os.path.basename(mtl_path)}\n")
+        np.savetxt(f, tris, fmt="v %.9g %.9g %.9g")
+        starts = np.flatnonzero(np.r_[True, mi[1:] != mi[:-1]])
+        ends = np.r_[starts[1:], mi.shape[0]]
+        for a, b in zip(starts, ends):
+            f.write(f"usemtl m{int(mi[a])}\n")
+            ids = np.arange(3 * a + 1, 3 * b + 1).reshape(-1, 3)
+            np.savetxt(f, ids, fmt="f %d %d %d")
 
 
 def max_abs_err(a, b) -> float:
@@ -978,6 +1145,341 @@ def parity_phase(card, scene, cam, key, tile_key, px0, py0, shared_mean):
     return parity
 
 
+def cli_phase(card, scene, shared_mean):
+    """Phase 9: the CLI, checkpoint/resume, the overflow regrow, the
+    trainer and render_sharded (see the module docstring).  Returns
+    {kernel name: {launches, ms, device_ms, bound_ms}} of the CLI frame."""
+    import contextlib
+    import io
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sycl_ray_tracing_tpu_torch import main as cli
+    from sycl_ray_tracing_tpu_torch import train
+    from sycl_ray_tracing_tpu_torch.models import scene as scene_mod
+    from sycl_ray_tracing_tpu_torch.models.camera import pbrt_dragon_camera
+    from sycl_ray_tracing_tpu_torch.models.progressive import (
+        ProgressiveRenderer,
+        ProgressiveState,
+    )
+    from sycl_ray_tracing_tpu_torch.ops import rng
+    from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as lt
+    from sycl_ray_tracing_tpu_torch.parallel import distributed
+    from sycl_ray_tracing_tpu_torch.parallel.mesh import make_mesh
+    from sycl_ray_tracing_tpu_torch.parallel.render import render_sharded
+    from sycl_ray_tracing_tpu_torch.probes import bounds, frame
+    from sycl_ray_tracing_tpu_torch.utils import hdr as hdr_mod
+    from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig, parse_cli
+    from sycl_ray_tracing_tpu_torch.utils.image_io import read_image_float
+    from sycl_ray_tracing_tpu_torch.utils.obj_loader import (
+        load_scene,
+        parse_obj,
+    )
+    from sycl_ray_tracing_tpu_torch.utils.procedural import (
+        dragon_scene,
+        procedural_sky,
+    )
+
+    t9 = time.perf_counter()
+    dev = scene.device
+    phase9 = {"block_tiles": {}, "list_tiles": {}}
+
+    def rgbe_close(a, b) -> bool:
+        """Equal to RGBE precision: each channel within 1/128 of its
+        pixel's largest channel."""
+        a, b = np.asarray(a), np.asarray(b)
+        return bool((np.abs(a - b)
+                     <= np.maximum(a, b).max(axis=-1, keepdims=True) / 128
+                     + 1e-30).all())
+
+    def run_cli(argv):
+        """The CLI in-process, its stdout kept; returns (code, lines, the
+        HDR image it wrote)."""
+        wrote = []
+        orig = hdr_mod.write_hdr
+
+        def keep(path, image):
+            wrote.append(np.array(image, np.float32))
+            orig(path, image)
+
+        hdr_mod.write_hdr = keep
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                code = cli.main(argv, device=dev)
+        finally:
+            hdr_mod.write_hdr = orig
+        return code, out.getvalue().splitlines(), (wrote[-1] if wrote
+                                                   else None)
+
+    def warnings_of(lines):
+        return [ln for ln in lines if ln.startswith(("WARNING", "ERROR"))]
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        # (a) I/O at full size: the 200k scene as OBJ + MTL, the sky as
+        # .hdr, written upside down so that the CLI's flipped read gives
+        # the scene's own sky
+        big = dragon_scene(N_TRIS, with_sky=False, build_accel=False,
+                           device="cpu")
+        sky = procedural_sky(*SKY_RES)
+        t0 = time.perf_counter()
+        write_obj("dragon.obj", big.triangles, big.material_indices,
+                  big.materials)
+        hdr_mod.write_hdr("sky.hdr", sky[::-1])
+        write_s = time.perf_counter() - t0
+        parsed = {}
+        for native_parse in (True, False):
+            t0 = time.perf_counter()
+            parsed[native_parse] = parse_obj("dragon.obj",
+                                             use_native=native_parse)
+            parsed[f"{native_parse} ms"] = (time.perf_counter() - t0) * 1e3
+        same = all(np.array_equal(getattr(parsed[True], f),
+                                  getattr(parsed[False], f))
+                   for f in ("triangles", "material_indices",
+                             "emissive_indices", "emission", "diffuse",
+                             "metalness", "roughness"))
+        exact = np.array_equal(parsed[True].triangles,
+                               big.triangles.numpy())
+        sky_back = read_image_float("sky.hdr", flip_y=True)
+        sky_ok = rgbe_close(sky_back, sky)
+        log(f"phase 9 I/O: dragon.obj {os.path.getsize('dragon.obj') / 2**20:.1f}"
+            f" MiB ({parsed[True].triangles.shape[0]} triangles) and "
+            f"sky.hdr {sky.shape[1]}x{sky.shape[0]} written in "
+            f"{write_s:.2f} s; parse {parsed['True ms']:.1f} ms native (C++), "
+            f"{parsed['False ms']:.1f} ms Python; arrays equal={same}, "
+            f"triangles equal to the scene's={exact}; the sky read back "
+            f"equal to RGBE precision={sky_ok}")
+        if not (same and exact and sky_ok):
+            raise RuntimeError("phase 9 I/O round trip failed")
+        del parsed, big
+
+        # (b) the CLI frame at full width, launch counters reset just
+        # before, its stdout kept
+        base = ["dragon.obj", "--sky=sky.hdr", f"--w={W}", f"--h={H}",
+                f"--bounces={BOUNCES}", "--camera=pbrt_dragon",
+                "--intersect=list", "--estimator=shared"]
+        argv = base + [f"--samples={CLI_SPP}"]
+        lt.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        code, lines, img = run_cli(argv)
+        cli_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(lt.LAUNCHES)
+        said = warnings_of(lines)
+        files = {f: os.path.exists(f) for f in CLI_OUTPUTS}
+        back = hdr_mod.read_hdr("RT_output.hdr")
+        hdr_ok = img is not None and rgbe_close(back, img)
+        # the CLI's last line: its RenderMetrics report
+        t = json.loads(lines[-1]) if code == 0 else {}
+        log(f"phase 9 CLI frame ({' '.join(argv)}): exit {code}, "
+            f"{len(lines)} lines, regrow warnings {said}, outputs {files}, "
+            f"RT_output.hdr equal to the rendered image to RGBE "
+            f"precision={hdr_ok}, mean {float(img.mean()):.6f} (phase 3's "
+            f"1-spp frame: {shared_mean:.6f}), launches={launches}")
+        log(f"phase 9 CLI metrics: scene_load {t.get('time/scene_load')} s, "
+            f"accel_build {t.get('time/accel_build')} s, render "
+            f"{t.get('time/render')} s, {t.get('Mrays_per_s')} Mrays/s "
+            f"({W}x{H}x{CLI_SPP}spp x{BOUNCES} bounces / render time); the "
+            f"whole CLI call {cli_s:.2f} s, peak device memory "
+            f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held before), "
+            f"card {card}")
+        if code != 0 or said or not all(files.values()) or not hdr_ok \
+                or not np.isfinite(img).all():
+            raise RuntimeError("the CLI frame failed its checks")
+        if min(launches.values()) < 1:
+            raise RuntimeError(f"a list kernel never launched in the CLI "
+                               f"frame: {launches}")
+        del img, back
+        # the same CLI frame again with every list-kernel launch timed
+        # and bounded, and once more under the profiler
+        with LaunchTimer(lt) as timer:
+            run_cli(argv)
+        per_frame = timer.per_kernel(bounds)
+        prof = frame.profile(lambda: run_cli(argv))
+        for name, (n, ms, h_ms, b_ms) in per_frame.items():
+            pn, dev_ms, top = prof["kernels"][f"{name}_kernel"]
+            log(f"phase 9 CLI frame {name}: {n} launches, {ms:.4f} ms "
+                f"kernel (CUDA events around each launch), {dev_ms:.4f} ms "
+                f"device time ({pn} launches, the longest {top:.4f} ms; "
+                f"profiler), {b_ms:.4f} ms sum of per-launch bounds, "
+                f"{h_ms:.4f} ms on the host clock inside the wrapper "
+                f"({card})")
+            phase9[name]["cli"] = dict(launches=launches[name], ms=ms,
+                                       device_ms=dev_ms, bound_ms=b_ms)
+        for line in frame.report(prof, "phase 9 profiled CLI call", card):
+            log(line)
+
+        # (c) checkpoint/resume: one batch saved by ProgressiveRenderer,
+        # the CLI resumes it; against the same render without a break
+        argv = base + ["--samples=2", "--checkpoint=ck.npz",
+                       "--checkpoint-batch=1"]
+        cfg = parse_cli(argv)[0]
+        loaded = load_scene("dragon.obj", env_map_image=sky_back,
+                            device=dev).build_acceleration(
+                                num_rays_hint=cfg.tile_rays)
+        cam = pbrt_dragon_camera(dev)
+        first = ProgressiveRenderer(loaded, cam, cfg, samples_per_batch=1)
+        first.step()
+        first.state.save("ck.npz")
+        code, lines, _ = run_cli(argv)
+        resumed = ProgressiveState.load("ck.npz")
+        whole = ProgressiveRenderer(loaded, cam, cfg, samples_per_batch=1)
+        whole.run()
+        diff = np.abs(resumed.image - whole.state.image)
+        rel = float(diff.max() / np.abs(whole.state.image).max())
+        identical = np.array_equal(resumed.image, whole.state.image)
+        log(f"phase 9 resume: exit {code}, {[ln for ln in lines if 'resum' in ln]}"
+            f", {resumed.samples_done} samples, overflow {resumed.overflow}"
+            f"; against the render without a break: bit-identical="
+            f"{identical}, max |d| {float(diff.max()):.3g} ({rel:.3g} of the "
+            f"image's largest value)")
+        if code != 0 or resumed.samples_done != 2 or resumed.overflow \
+                or not identical:
+            raise RuntimeError("the resumed render differs from the one "
+                               "without a break")
+        del loaded, first, whole
+
+        # (d) the regrow: the 4k scene with clusters of candidate depth 1
+        small = dragon_scene(SMALL_TRIS, with_sky=False, build_accel=False,
+                             device="cpu")
+        write_obj("small.obj", small.triangles, small.material_indices,
+                  small.materials)
+        build = scene_mod.Scene.build_acceleration
+
+        def shallow(self, *a, **kw):
+            s = build(self, *a, **kw)
+            return s.with_clusters(s.clusters.with_list_maxc(REGROW_MAXC))
+
+        scene_mod.Scene.build_acceleration = shallow
+        try:
+            code, lines, img = run_cli([
+                "small.obj", "--sky=sky.hdr", f"--w={SMALL_W}",
+                f"--h={SMALL_W}", f"--samples={SMALL_SPP}",
+                f"--bounces={SMALL_BOUNCES}", "--camera=pbrt_dragon",
+                "--intersect=list", "--estimator=shared"])
+        finally:
+            scene_mod.Scene.build_acceleration = build
+        said = warnings_of(lines)
+        log(f"phase 9 regrow: {small.num_triangles} triangles at list_maxc "
+            f"{REGROW_MAXC}, {SMALL_W}x{SMALL_W}x{SMALL_SPP}spp x"
+            f"{SMALL_BOUNCES} bounces: exit {code}, {said}")
+        if code != 0 or not said or any(w.startswith("ERROR")
+                                        for w in said):
+            raise RuntimeError("the regrow did not end with every ray "
+                               "certified")
+
+    # (e) the trainer on a one-rank NCCL group; (f) render_sharded
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    rank_dev = distributed.initialize(f"127.0.0.1:{port}", 1, 0, device=dev)
+    try:
+        if rank_dev != dev:
+            raise RuntimeError(f"the rank renders on {rank_dev}, the scene "
+                               f"is on {dev}")
+        mesh = make_mesh(1, 1)
+        backend = dist.get_backend()
+        cam = pbrt_dragon_camera(rank_dev)
+        tcfg = RenderConfig(TRAIN_W, TRAIN_W, samples=TRAIN_SPP,
+                            bounces=TRAIN_BOUNCES, tile_rays=None)
+        # counters reset just before; every launch of step 0's forward
+        # (target and guess) held against the plain versions; the
+        # launches inside each backward counted
+        lt.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with HoldEach(lt) as hold, BackwardWatch(lt, hold) as bwd:
+            out = train.run(scene, cam, tcfg, TRAIN_STEPS, mesh,
+                            log=lambda m: log(f"phase 9 train: {m}"))
+            torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0 - hold.seconds) / TRAIN_STEPS
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(lt.LAUNCHES)
+        g = torch.cat([x.flatten() for x in out["grads"]])
+        losses_ok = all(np.isfinite(x) for x in out["losses"])
+        grads_ok = bool(torch.isfinite(g).all()) and bool((g != 0).any())
+        log(f"phase 9 train ({backend} group of {dist.get_world_size()}, "
+            f"mesh {mesh.shape}): {TRAIN_STEPS} steps at {TRAIN_W}x{TRAIN_W}"
+            f"x{TRAIN_SPP}spp x{TRAIN_BOUNCES} bounces, {step_s:.3f} s a "
+            f"step (the holds' {hold.seconds:.2f} s taken out), losses "
+            f"{[round(x, 6) for x in out['losses']]}, last gradients finite "
+            f"and nonzero={grads_ok}, diffuse error {out['err0_d']:.4f} -> "
+            f"{out['err_d']:.4f}, roughness {out['err0_r']:.4f} -> "
+            f"{out['err_r']:.4f}, peak device memory of steps 1-"
+            f"{TRAIN_STEPS - 1} {peak / 2**30:.2f} GiB ({held / 2**30:.2f} "
+            f"GiB held before the run), card {card}")
+        log(f"phase 9 train launches: {launches} in the {TRAIN_STEPS} steps,"
+            f" {bwd.launches} of them inside the {bwd.calls} backward calls; "
+            f"step 0's forward held launch by launch (launches, rays of the "
+            f"largest, max |dt|): {hold.held}, each bit-identical")
+        if not (losses_ok and grads_ok and out["err_d"] < out["err0_d"]):
+            raise RuntimeError("the trainer failed its checks")
+        if min(launches.values()) < 1 or any(bwd.launches.values()) \
+                or bwd.calls != TRAIN_STEPS \
+                or hold.held["block_tiles"][0] < 1:
+            raise RuntimeError(f"the trainer's launches: {launches}, in its "
+                               f"backward {bwd.launches}, held {hold.held}")
+        for name, n in launches.items():
+            phase9[name]["train"] = dict(
+                launches=n, backward_launches=bwd.launches[name],
+                held=hold.held[name][0], largest_rays=hold.held[name][1],
+                max_abs_err=hold.held[name][2])
+
+        # render_sharded at 512x512 in one render_rays call: first with
+        # the counters reset just before and every launch held against
+        # the plain versions, then again for its time and peak memory,
+        # which must give the same image bit for bit
+        scfg = RenderConfig(W, H, samples=1, bounces=BOUNCES,
+                            intersect="list", estimator="shared")
+        lt.reset_launch_counts()
+        with HoldEach(lt) as hold:
+            sharded = render_sharded(scene, cam, scfg, rng.prng_key(SEED),
+                                     mesh)
+        launches = dict(lt.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        again = render_sharded(scene, cam, scfg, rng.prng_key(SEED), mesh)
+        torch.cuda.synchronize()
+        s_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        same = torch.equal(again, sharded)
+        s_mean = float(sharded.mean())
+        off = abs(s_mean - shared_mean) / shared_mean
+        log(f"phase 9 render_sharded ({backend}, one rank): {W}x{H}x1spp "
+            f"x{BOUNCES} bounces in one render_rays call ({W * H} rays), "
+            f"launches {launches}, each held against the plain versions "
+            f"(launches, rays of the largest, max |dt|): {hold.held}, "
+            f"bit-identical, in {hold.seconds:.2f} s")
+        log(f"phase 9 render_sharded again: {s_ms:.1f} ms, the same image "
+            f"bit for bit={same}, mean {s_mean:.6f} against phase 3's "
+            f"{shared_mean:.6f} ({off:.2%} apart; other RNG streams), peak "
+            f"device memory {peak / 2**30:.2f} GiB ({before / 2**30:.2f} "
+            f"GiB held before), limit {PEAK_LIMIT / 2**30:.0f} GiB, card "
+            f"{card}")
+        if not bool(torch.isfinite(sharded).all()) or off > 0.02 \
+                or peak > PEAK_LIMIT or not same \
+                or min(launches.values()) < 1:
+            raise RuntimeError("render_sharded failed its checks")
+        for name, n in launches.items():
+            phase9[name]["sharded"] = dict(
+                launches=n, held=hold.held[name][0],
+                largest_rays=hold.held[name][1],
+                max_abs_err=hold.held[name][2])
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 9 took {time.perf_counter() - t9:.1f} s, card {card}")
+    return phase9
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     try:
@@ -1375,6 +1877,14 @@ def main() -> int:
                               mean)
     for entry in kernels[:2]:
         entry["frame_parity"] = parity[entry["name"]]
+
+    # ---- phase 9: the CLI, resume, regrow, the trainer, render_sharded ----
+    phase9 = cli_phase(card, scene, mean)
+    for entry in kernels[:2]:
+        entry.update(phase9[entry["name"]])
+        entry["max_abs_err"] = max(
+            entry["max_abs_err"], entry["train"]["max_abs_err"],
+            entry["sharded"]["max_abs_err"])
 
     for k in kernels:
         del k["ops"], k["bytes"]

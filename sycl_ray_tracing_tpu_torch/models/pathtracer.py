@@ -894,12 +894,13 @@ def render_rays(scene: Scene, camera: Camera, px, py, width: int,
 
 
 def render(scene: Scene, camera: Camera, config: RenderConfig, key,
-           with_aux: bool = False, impl=None):
+           with_aux: bool = False, impl=None, on_tile=None):
     """Full-frame render -> linear HDR image [H,W,3] (pathtracer.py:
     1131-1202).  Row 0 is the BOTTOM of the image.  ``with_aux=True`` also
     returns {"overflow": bool}: True when some ray's answer is not
     certified exact.  Tiles of ``config.tile_rays`` rays use the per-tile
-    key fold_in(key, tile_index)."""
+    key fold_in(key, tile_index); ``on_tile(tile_index, n_tiles, hdr)`` is
+    called after each tile's render (the CLI's progress lines)."""
     W, H = config.width, config.height
     dev = scene.device
     kw = dict(samples=config.samples, bounces=config.bounces,
@@ -939,6 +940,8 @@ def render(scene: Scene, camera: Camera, config: RenderConfig, key,
                                    fold_in(key, tidx), **kw)
                 parts.append(h)
                 overflow = overflow | a["overflow"]
+                if on_tile is not None:
+                    on_tile(tidx, n_tiles, h)
             hdr, aux = torch.cat(parts)[:B], {"overflow": overflow}
         img = hdr.reshape(H, W, 3)
     aux = {"overflow": bool(aux["overflow"])}

@@ -19,6 +19,8 @@ import time
 
 import torch
 
+from sycl_ray_tracing_tpu_torch.utils.metrics import device_op_totals
+
 KERNELS = ("block_tiles_kernel", "list_tiles_kernel")
 SEED = 0
 N_TRIS = 200_000
@@ -53,20 +55,16 @@ def profile(fn, kernels=KERNELS) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     found = {k: (0, 0.0, 0.0) for k in kernels}
-    by_name = {}
-    device_us = 0.0
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        us = e.duration_ns() / 1e3
-        name = e.name()
-        device_us += us
-        n, t = by_name.get(name, (0, 0.0))
-        by_name[name] = (n + 1, t + us)
+        ms = e.duration_ns() / 1e6
         for k in kernels:
-            if k in name:
-                n, ms, top = found[k]
-                found[k] = (n + 1, ms + us / 1e3, max(top, us / 1e3))
+            if k in e.name():
+                n, tot, top = found[k]
+                found[k] = (n + 1, tot + ms, max(top, ms))
+    by_name = device_op_totals(prof)
+    device_us = sum(us for _n, us in by_name.values())
     top = sorted(((us / 1e3, n, name) for name, (n, us) in by_name.items()),
                  reverse=True)[:TOP_OPS]
     return dict(kernels=found, top=top, device_ms=device_us / 1e3,

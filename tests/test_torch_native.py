@@ -1,5 +1,6 @@
-"""The port's native SAH builder: its own copy of the C++ source, the same
-cluster order as the JAX package's, and no path into the JAX package."""
+"""The port's native library: its own copies of the C++ sources (the SAH
+builder and the OBJ parser), the same cluster order as the JAX package's,
+and no path into the JAX package."""
 
 import os
 import subprocess
@@ -20,11 +21,12 @@ JAX_DIR = REPO / "sycl_ray_tracing_tpu"
 
 
 def test_native_source_inside_the_port():
-    src = native.SOURCE.resolve()
-    assert src.is_relative_to(PORT_DIR.resolve())
-    # a copy, kept unchanged
-    assert src.read_bytes() == (JAX_DIR / "native" / "bvh_builder.cpp"
-                                ).read_bytes()
+    for src, name in ((native.SOURCE, "bvh_builder.cpp"),
+                      (native.OBJ_SOURCE, "obj_parser.cpp")):
+        src = src.resolve()
+        assert src.is_relative_to(PORT_DIR.resolve())
+        # a copy, kept unchanged
+        assert src.read_bytes() == (JAX_DIR / "native" / name).read_bytes()
 
 
 def test_sah_order_matches_jax(tmp_path, monkeypatch):
@@ -79,12 +81,19 @@ from sycl_ray_tracing_tpu_torch import native
 from sycl_ray_tracing_tpu_torch.ops.cluster import sah_order
 from sycl_ray_tracing_tpu_torch.utils.procedural import dragon_standin
 
-# a fresh build of the SAH builder, then a cluster order from it
+# a fresh build of the native library, then a cluster order and an OBJ
+# parse (its C++ parser and the MTL next to it) from it
 with tempfile.TemporaryDirectory() as build_dir:
     native.BUILD_DIR = Path(build_dir)
     native._lib = None
     tris = dragon_standin(500)
     assert sah_order(tris).size == tris.shape[0]
+    from sycl_ray_tracing_tpu_torch.utils.obj_loader import parse_obj
+    obj = Path(build_dir) / "t.obj"
+    obj.write_text("mtllib t.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\n"
+                   "usemtl a\nf 1 2 3\n")
+    (Path(build_dir) / "t.mtl").write_text("newmtl a\nKd 1 0 0\n")
+    assert parse_obj(str(obj)).material_indices.tolist() == [1]
 # the kernel sources the module constants name (nvcc is not needed here)
 for m in mods:
     for name, v in vars(m).items():
@@ -98,7 +107,8 @@ print("clean")
 
 def test_port_never_opens_the_jax_package():
     """No module of the port builds or opens a path under the JAX package:
-    every port module imported, the SAH builder built afresh and run, and
+    every port module imported, the native library (SAH builder and OBJ
+    parser) built afresh and run, and
     every Path constant of the port's modules checked, with an audit hook
     on open / listdir / subprocess."""
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -128,6 +128,27 @@ Phases (any failure exits non-zero):
      every launch held bit for bit (both kernels launched), then again
      for its time and peak memory (under 20 GB), the same image bit for
      bit; its mean within 2% of phase 3's.
+ 10. The five BASELINE configurations through their example modules
+     (sycl_ray_tracing_tpu_torch/examples/), each in a temporary cwd, at
+     full width (resolution, triangles, sky, bounces, tiles), depth cut
+     for the script's time: config 1 unchanged (256x256, 16 spp, brute
+     force), config 2 64 -> 4 spp, config 3 128 -> 1 spp, config 4 256 ->
+     1 spp, config 5 100 -> 5 steps at its 32x32x16 spp.  MIS.obj and
+     cornell_pbr.obj are procedural stand-ins written as OBJ + MTL under a
+     temporary $SRT_REFERENCE_ROOT.  For each image config, the launch
+     counters reset just before its _common.run (a warm-up render and the
+     timed ones): its JSON line, overflow (must be False), a finite image
+     above the example's mean bound, the files it wrote, peak device
+     memory, both list kernels' launches (above 0, the first launch held
+     bit for bit against the plain version as it happens, for each kernel
+     the config's path reaches; 0 for the others: off the list tracer
+     none, and list_tiles, the escalation, only where the scene has more
+     clusters than a block list's 128 slots); config 4's frame once more
+     with each list-kernel launch timed and bounded, and once under the
+     profiler (device busy share).  Config 5 runs train.main
+     with the example's arguments on a one-rank NCCL group: exit 0 (the
+     diffuse error fell) and no list-kernel launch (the trainer builds no
+     clusters).
 
 The second-to-last lines are the card line and one JSON object describing
 each kernel (time, plain version's time, launches, and the bound: the
@@ -136,8 +157,10 @@ least time an H100 could take for the same work); the last line is
 launches in the fwd+bwd frame (phase 7), the parity frame (phase 8), the
 CLI frame (phase 9, "cli": launches, event ms, device ms, bound), the
 trainer ("train": launches, those in the backward, launches held, the
-largest held launch's rays, max |dt|) and render_sharded ("sharded": the
-same without the backward).
+largest held launch's rays, max |dt|), render_sharded ("sharded": the
+same without the backward) and each BASELINE config ("examples": launches,
+renders, launches held, the largest held launch's rays, max |dt|; and
+"config4_frame": launches, event ms, device ms, bound of one frame).
 Without CUDA, or without the rest of the
 repository beside it, the script exits 2 and prints no result.
 """
@@ -182,6 +205,11 @@ TRAIN_STEPS = 5
 # what the CLI writes into its cwd
 CLI_OUTPUTS = ("RT_output.png", "RT_output.hdr", "RT_output_denoised_1.png",
                "RT_output_denoised_0.75.png", "RT_output_denoised_0.5.png")
+# phase 10: the BASELINE configs' depth cuts (samples a pixel; the
+# trainer's steps), at full width otherwise
+EX_SPP = {"config2_obj_bvh": 4, "config3_dragon_mis": 1,
+          "config4_env_tonemap": 1}
+EX_STEPS = 5
 BLOCK_REPLACES = "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:298"
 LIST_REPLACES = "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:245"
 
@@ -316,11 +344,13 @@ class HoldEach:
     (through the wrapper, so counted once, as without the hold) must give
     the plain version's (at, ar, stop) bit for bit.  Keeps no tensor of
     the run; per kernel it keeps (launches held, rays of the largest, max
-    |dt|), and the seconds the holds took."""
+    |dt|), and the seconds the holds took.  With ``first`` it holds only
+    the first ``first`` launches of each kernel."""
 
-    def __init__(self, lt):
+    def __init__(self, lt, first=None):
         self.lt = lt
         self.on = True
+        self.first = first
         self.held = {"block_tiles": (0, 0, 0.0), "list_tiles": (0, 0, 0.0)}
         self.seconds = 0.0
         self._orig = {}
@@ -334,7 +364,9 @@ class HoldEach:
 
             def held(*args, **kw):
                 out = orig(*args, **kw)
-                if self.on and kw.get("impl") in (None, "cuda"):
+                if self.on and kw.get("impl") in (None, "cuda") and (
+                        self.first is None
+                        or self.held[name][0] < self.first):
                     t0 = time.perf_counter()
                     want = plain(*args[:4])
                     same = all(torch.equal(a, b) for a, b in zip(out, want))
@@ -429,6 +461,157 @@ def write_obj(path: str, triangles, material_indices, materials) -> None:
             f.write(f"usemtl m{int(mi[a])}\n")
             ids = np.arange(3 * a + 1, 3 * b + 1).reshape(-1, 3)
             np.savetxt(f, ids, fmt="f %d %d %d")
+
+
+def _quad(a, b, c, d, toward) -> list:
+    """Two triangles of the planar quad a-b-c-d, wound so that their
+    geometric normal points along ``toward`` (shading is one-sided)."""
+    import numpy as np
+
+    a, b, c, d = (np.asarray(p, np.float32) for p in (a, b, c, d))
+    if np.dot(np.cross(b - a, c - a), toward) < 0:
+        b, d = d, b
+    return [[a, b, c], [a, c, d]]
+
+
+def _box(lo, hi, turn_deg=0.0) -> list:
+    """12 outward-facing triangles of the box [lo, hi] turned by
+    ``turn_deg`` about its vertical axis."""
+    import numpy as np
+
+    lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+    mid = (lo + hi) / 2
+    c, s = np.cos(np.radians(turn_deg)), np.sin(np.radians(turn_deg))
+
+    def corner(ix, iy, iz):
+        p = np.where([ix, iy, iz], hi, lo) - mid
+        return mid + np.array(
+            [c * p[0] + s * p[2], p[1], -s * p[0] + c * p[2]], np.float32)
+
+    tris = []
+    for axis in range(3):
+        for side in (0, 1):
+            ids = []
+            for u, v in ((0, 0), (1, 0), (1, 1), (0, 1)):
+                bits = [u, v]
+                bits.insert(axis, side)
+                ids.append(corner(*bits))
+            tris += _quad(*ids, toward=np.mean(ids, axis=0) - mid)
+    return tris
+
+
+def _sphere(center, radius, seg) -> list:
+    """A UV sphere of 4*seg*(seg-1) outward-facing triangles."""
+    import numpy as np
+
+    center = np.asarray(center, np.float32)
+    th = np.linspace(0.0, np.pi, seg + 1)
+    ph = np.linspace(0.0, 2 * np.pi, 2 * seg + 1)
+
+    def p(i, j):
+        return center + radius * np.array(
+            [np.sin(th[i]) * np.cos(ph[j]), np.cos(th[i]),
+             np.sin(th[i]) * np.sin(ph[j])], np.float32)
+
+    tris = []
+    for i in range(seg):
+        for j in range(2 * seg):
+            a, b, c, d = p(i, j), p(i + 1, j), p(i + 1, j + 1), p(i, j + 1)
+            # the pole bands' quads have one degenerate triangle
+            tris += [t for t in _quad(a, b, c, d, (a + c) / 2 - center)
+                     if np.linalg.norm(np.cross(t[1] - t[0], t[2] - t[0]))
+                     > 0]
+    return tris
+
+
+def mis_standin(seg: int = 16) -> tuple:
+    """A procedural stand-in for the reference's MIS.obj (Veach's
+    multiple-importance-sampling scene, 3860 triangles): four glossy
+    metal plates of rising roughness under four spherical lights of
+    falling size and rising radiance, a dim overhead panel, a floor and a
+    back wall, in the view of models.camera.mis_camera.  ``seg`` sets the
+    spheres' tessellation (16: 3,854 triangles).  Returns (triangles
+    [N,3,3], material rows [N], {emission, diffuse, metalness,
+    roughness}: row 0 the loader's debug material)."""
+    import numpy as np
+
+    parts = [
+        (_quad((-10, -7.5, -6), (10, -7.5, -6), (10, -7.5, 6),
+               (-10, -7.5, 6), (0, 1, 0)), 1),
+        (_quad((-10, -7.5, -5), (10, -7.5, -5), (10, 4, -5), (-10, 4, -5),
+               (0, 0, 1)), 1),
+        (_quad((-3, 4, -2), (3, 4, -2), (3, 4, 2), (-3, 4, 2), (0, -1, 0)),
+         2),
+    ]
+    # the plates rise toward the back wall, each tilted a little more
+    for k, (y, z) in enumerate(((-6.0, 1.5), (-5.0, 0.5), (-4.0, -0.5),
+                                (-3.0, -1.5))):
+        tilt = np.radians(25.0 + 8.0 * k)
+        dy, dz = 0.6 * np.sin(tilt), -0.6 * np.cos(tilt)
+        parts.append((_quad((-3.5, y - dy, z - dz), (3.5, y - dy, z - dz),
+                            (3.5, y + dy, z + dz), (-3.5, y + dy, z + dz),
+                            (0, np.cos(tilt), np.sin(tilt))), 3 + k))
+    radii = (0.05, 0.15, 0.4, 1.0)
+    for k, (x, r) in enumerate(zip((-3.75, -1.25, 1.25, 3.75), radii)):
+        parts.append((_sphere((x, 0.5, -3.0), r, seg), 7 + k))
+    tris = np.array([t for p, _ in parts for t in p], np.float32)
+    mat = np.concatenate([np.full(len(p), m, np.int32) for p, m in parts])
+    colors = ((1.0, 0.3, 0.3), (0.3, 1.0, 0.3), (0.3, 0.5, 1.0),
+              (1.0, 0.9, 0.6))
+    table = dict(
+        emission=[(1, 0, 1), (0, 0, 0), (2, 2, 2)] + [(0, 0, 0)] * 4
+        + [tuple(4.0 / r ** 2 * c for c in col)
+           for r, col in zip(radii, colors)],
+        diffuse=[(0, 0, 0), (0.4, 0.4, 0.4), (0, 0, 0)]
+        + [(0.7, 0.7, 0.7)] * 4 + [(0, 0, 0)] * 4,
+        metalness=[0, 0, 0] + [1.0] * 4 + [0] * 4,
+        roughness=[1, 0.9, 1] + [0.05, 0.15, 0.35, 0.7] + [1] * 4)
+    return tris, mat, table
+
+
+def cornell_standin() -> tuple:
+    """A procedural stand-in for the reference's cornell_pbr.obj: the
+    Cornell box (white floor, ceiling and back wall, red left and green
+    right walls, a ceiling light) with a tall and a short box, in the view
+    of models.camera.cornell_box_camera.  Returns what mis_standin
+    returns."""
+    import numpy as np
+
+    parts = [
+        (_quad((-1, 0, -1), (1, 0, -1), (1, 0, 1), (-1, 0, 1), (0, 1, 0)), 1),
+        (_quad((-1, 2, -1), (1, 2, -1), (1, 2, 1), (-1, 2, 1), (0, -1, 0)),
+         1),
+        (_quad((-1, 0, -1), (1, 0, -1), (1, 2, -1), (-1, 2, -1), (0, 0, 1)),
+         1),
+        (_quad((-1, 0, -1), (-1, 2, -1), (-1, 2, 1), (-1, 0, 1), (1, 0, 0)),
+         2),
+        (_quad((1, 0, -1), (1, 2, -1), (1, 2, 1), (1, 0, 1), (-1, 0, 0)), 3),
+        (_quad((-0.25, 1.98, -0.25), (0.25, 1.98, -0.25),
+               (0.25, 1.98, 0.25), (-0.25, 1.98, 0.25), (0, -1, 0)), 4),
+        (_box((-0.7, 0.0, -0.6), (-0.1, 1.2, 0.0), 18.0), 5),
+        (_box((0.1, 0.0, 0.0), (0.7, 0.6, 0.6), -17.0), 6),
+    ]
+    tris = np.array([t for p, _ in parts for t in p], np.float32)
+    mat = np.concatenate([np.full(len(p), m, np.int32) for p, m in parts])
+    table = dict(
+        emission=[(1, 0, 1)] + [(0, 0, 0)] * 3 + [(17, 12, 4)]
+        + [(0, 0, 0)] * 2,
+        diffuse=[(0, 0, 0), (0.73, 0.73, 0.73), (0.65, 0.05, 0.05),
+                 (0.12, 0.45, 0.15), (0, 0, 0), (0.73, 0.73, 0.73),
+                 (0.6, 0.6, 0.8)],
+        metalness=[0, 0, 0, 0, 0, 0.2, 0.5],
+        roughness=[1, 0.8, 0.6, 0.6, 1, 0.5, 0.3])
+    return tris, mat, table
+
+
+def write_standin(path: str, standin: tuple) -> None:
+    """Write mis_standin()'s or cornell_standin()'s scene as OBJ + MTL
+    at ``path`` (its directories made)."""
+    from sycl_ray_tracing_tpu_torch.models.scene import make_materials
+
+    tris, mat, table = standin
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    write_obj(path, tris, mat, make_materials(**table, device="cpu"))
 
 
 def max_abs_err(a, b) -> float:
@@ -1480,6 +1663,208 @@ def cli_phase(card, scene, shared_mean):
     return phase9
 
 
+def examples_phase(card, dev) -> dict:
+    """Phase 10: the five BASELINE configurations through their example
+    modules (see the module docstring).  Returns {kernel name:
+    {"examples": {config: {launches, renders, held, largest_rays,
+    max_abs_err}}, "config4_frame": {launches, ms, device_ms,
+    bound_ms}}}."""
+    import contextlib
+    import dataclasses
+    import io
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sycl_ray_tracing_tpu_torch import train
+    from sycl_ray_tracing_tpu_torch.examples import (
+        _common,
+        config1_spheres_direct,
+        config2_obj_bvh,
+        config3_dragon_mis,
+        config4_env_tonemap,
+        config5_inverse_sharded,
+    )
+    from sycl_ray_tracing_tpu_torch.models import pathtracer as pt
+    from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as lt
+    from sycl_ray_tracing_tpu_torch.probes import bounds, frame
+    from sycl_ray_tracing_tpu_torch.utils.config import REFERENCE_ROOT_ENV
+
+    t10 = time.perf_counter()
+    found = {k: {"examples": {}} for k in ("block_tiles", "list_tiles")}
+
+    @contextlib.contextmanager
+    def env(**values):
+        old = {k: os.environ.get(k) for k in values}
+        os.environ.update(values)
+        try:
+            yield
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    with tempfile.TemporaryDirectory() as root, \
+            env(**{REFERENCE_ROOT_ENV: root}):
+        for name, standin in (("MIS.obj", mis_standin()),
+                              ("cornell_pbr.obj", cornell_standin())):
+            write_standin(os.path.join(root, "data/OBJs", name), standin)
+            tris, mat, table = standin
+            lit = np.any(np.asarray(table["emission"])[mat] > 0, axis=-1)
+            log(f"phase 10 stand-in: data/OBJs/{name} is a procedural "
+                f"stand-in ({tris.shape[0]} triangles, "
+                f"{np.unique(mat[lit]).size} emissive materials): the "
+                "reference's file is not in the repository")
+
+        mis = config2_obj_bvh.find_data(config2_obj_bvh.MIS_OBJ)
+        builds = (lambda: config1_spheres_direct.build(device=dev),
+                  lambda: config2_obj_bvh.build(mis, device=dev),
+                  lambda: config3_dragon_mis.build(device=dev),
+                  lambda: config4_env_tonemap.build(device=dev))
+        for build in builds:
+            t0 = time.perf_counter()
+            ex = build()
+            build_s = time.perf_counter() - t0
+            spp = EX_SPP.get(ex.name)
+            if spp is not None:
+                log(f"phase 10 {ex.name} cut: {ex.config.samples} -> {spp} "
+                    "samples a pixel (the script's time)")
+                ex = dataclasses.replace(ex, config=dataclasses.replace(
+                    ex.config, samples=spp))
+            c = ex.config
+            with tempfile.TemporaryDirectory() as cwd, contextlib.chdir(cwd):
+                # the counters reset just before; the first launch of each
+                # list kernel held against its plain version as it happens
+                lt.reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                out = io.StringIO()
+                with HoldEach(lt, first=1) as hold, \
+                        contextlib.redirect_stdout(out):
+                    res = _common.run(ex)
+                launches = dict(lt.LAUNCHES)
+                peak = torch.cuda.max_memory_allocated()
+                files = sorted(os.listdir("."))
+            line = json.loads(out.getvalue().splitlines()[-1])
+            renders = 1 + ex.runs
+            img = res["image"]
+            backend = pt._resolve_backend(ex.scene, c.intersect)
+            sky = ex.scene.env_map and tuple(ex.scene.env_map.image.shape)
+            log(f"phase 10 {ex.name}: {line}")
+            log(f"phase 10 {ex.name}: {c.width}x{c.height}x{c.samples}spp x"
+                f"{c.bounces} bounces, {ex.scene.num_triangles} triangles, "
+                f"{ex.scene.num_spheres} spheres, sky {sky}, tiles "
+                f"{c.tile_rays}, intersect {c.intersect} -> {backend}; "
+                f"built in {build_s:.1f} s; overflow={res['overflow']}, "
+                f"finite={bool(np.isfinite(img).all())}, mean "
+                f"{float(img.mean()):.6f} (the example's bound: "
+                f"{ex.min_mean}), wrote {files}; launches {launches} in "
+                f"{renders} renders (warm-up + {ex.runs} timed), held "
+                f"(launches, rays of the largest, max |dt|) {hold.held} in "
+                f"{hold.seconds:.2f} s; peak device memory "
+                f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held "
+                f"before), card {card}")
+            if res["overflow"] or not np.isfinite(img).all() \
+                    or peak > PEAK_LIMIT:
+                raise RuntimeError(f"{ex.name} failed its checks")
+            # the kernels this config's path reaches: none off the list
+            # tracer; block_tiles on it; list_tiles only where a ray can
+            # be left uncertified, i.e. where the scene has more clusters
+            # than a block's shared list has slots
+            reach = {k: backend == "list" for k in launches}
+            reach["list_tiles"] &= ex.scene.clusters is not None and \
+                ex.scene.clusters.num_clusters > lt.DEFAULT_MAXC_SHARE
+            log(f"phase 10 {ex.name}: list kernels its path reaches: "
+                f"{reach} ({backend}, "
+                f"{ex.scene.clusters.num_clusters if ex.scene.clusters else 0}"
+                f" clusters, {lt.DEFAULT_MAXC_SHARE} slots a block list)")
+            for k, n in launches.items():
+                if (n > 0) != reach[k] or (hold.held[k][0] > 0) != reach[k]:
+                    raise RuntimeError(f"{ex.name}: {k} launched {n} times, "
+                                       f"held {hold.held[k][0]}; reaches it:"
+                                       f" {reach[k]}")
+            for k, n in launches.items():
+                found[k]["examples"][ex.name] = dict(
+                    launches=n, renders=renders, held=hold.held[k][0],
+                    largest_rays=hold.held[k][1],
+                    max_abs_err=hold.held[k][2])
+            if ex.name == "config4_env_tonemap":
+                # its frame once more with every list-kernel launch timed
+                # and bounded, and once under the profiler
+                with LaunchTimer(lt) as timer:
+                    _common._frame(ex.scene, ex.camera, ex.config, ex.key)
+                per_frame = timer.per_kernel(bounds)
+                del timer   # it holds every launch's inputs
+                prof = frame.profile(lambda: _common._frame(
+                    ex.scene, ex.camera, ex.config, ex.key))
+                for k, (n, ms, h_ms, b_ms) in per_frame.items():
+                    pn, dev_ms, top = prof["kernels"][f"{k}_kernel"]
+                    log(f"phase 10 {ex.name} frame {k}: {n} launches, "
+                        f"{ms:.4f} ms kernel (CUDA events around each "
+                        f"launch), {dev_ms:.4f} ms device time ({pn} "
+                        f"launches, the longest {top:.4f} ms; profiler), "
+                        f"{b_ms:.4f} ms sum of per-launch bounds, {h_ms:.4f}"
+                        f" ms on the host clock inside the wrapper ({card})")
+                    found[k]["config4_frame"] = dict(
+                        launches=n, ms=ms, device_ms=dev_ms, bound_ms=b_ms)
+                for ln in frame.report(prof, f"phase 10 profiled {ex.name}",
+                                       card):
+                    log(ln)
+            del ex, res, img
+
+        # config 5: the trainer on a one-rank NCCL group, as torchrun
+        # would start it
+        args = [f"--steps={EX_STEPS}" if a.startswith("--steps=") else a
+                for a in config5_inverse_sharded.train_args()]
+        log(f"phase 10 config5_inverse_sharded cut: "
+            f"{config5_inverse_sharded.train_args()[0]} -> {args[0]} (the "
+            "script's time)")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        with tempfile.TemporaryDirectory() as cwd, contextlib.chdir(cwd), \
+                env(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                    WORLD_SIZE="1", RANK="0", LOCAL_RANK="0"):
+            lt.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(out):
+                    code = train.main(args, device=dev)
+                torch.cuda.synchronize()
+                backend = dist.get_backend() if dist.is_initialized() \
+                    else None
+            finally:
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+            train_s = time.perf_counter() - t0
+            launches = dict(lt.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+        for ln in out.getvalue().splitlines():
+            log(f"phase 10 config5_inverse_sharded: {ln}")
+        log(f"phase 10 config5_inverse_sharded (train.main {' '.join(args)},"
+            f" a {backend} group of 1): exit {code} in {train_s:.1f} s "
+            f"({train_s / EX_STEPS:.3f} s a step with the set-up); launches "
+            f"{launches} (its scene has no clusters, so brute force); peak "
+            f"device memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB "
+            f"held before), card {card}")
+        if code != 0 or backend != "nccl" or any(launches.values()):
+            raise RuntimeError("config 5 failed its checks")
+        for k, n in launches.items():
+            found[k]["examples"]["config5_inverse_sharded"] = dict(
+                launches=n, renders=None, held=0, largest_rays=0,
+                max_abs_err=0.0)
+    log(f"phase 10 took {time.perf_counter() - t10:.1f} s, card {card}")
+    return found
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     try:
@@ -1885,6 +2270,14 @@ def main() -> int:
         entry["max_abs_err"] = max(
             entry["max_abs_err"], entry["train"]["max_abs_err"],
             entry["sharded"]["max_abs_err"])
+
+    # ---- phase 10: the five BASELINE configurations (the examples) ----
+    phase10 = examples_phase(card, dev)
+    for entry in kernels[:2]:
+        entry.update(phase10[entry["name"]])
+        entry["max_abs_err"] = max(
+            [entry["max_abs_err"]]
+            + [v["max_abs_err"] for v in entry["examples"].values()])
 
     for k in kernels:
         del k["ops"], k["bytes"]

@@ -38,11 +38,17 @@ Phases (any failure exits non-zero):
      probe scripts' shapes (the block kernel on kernel_shape's maxc-96
      grouped lists and the per-ray kernel at 1 / 8 / 16 / 32 rays per
      block on its maxc-32 per-ray lists, (at, ar, stop) each, where the
-     guard must stop lists; the unguarded lane-min form, the synthetic
-     round in every variant and sub-block count, the three feature smoke
-     kernels, also against the scripts' closed forms), then every probe
-     sweep once (python -m sycl_ray_tracing_tpu_torch.probes), with the
-     probe kernels' launch counters reset just before.
+     guard must stop lists; the unguarded lane-min form, a union walk,
+     on the per-ray lists at maxc 32 and 48, with its registers, spill
+     and occupancy, the tile bytes it stages and the sharing factor; the
+     synthetic round in every variant at 1 / 8 / 32 sub-blocks from the
+     probes' initial 0 and, for the MT variants, from +inf, with its
+     registers, spill and occupancy; the three feature smoke kernels,
+     also against the scripts' closed forms), then every probe sweep
+     once (python -m sycl_ray_tracing_tpu_torch.probes: the union walk
+     at 8 / 16 / 32 rays a block, the synthetic round's exact, SASS and
+     time checks among them), with the probe kernels' launch counters
+     reset just before.
   6. The 870k-triangle frame, whose main passes take the supercluster-
      prefiltered candidate build (K2 above 2*maxs*64 clusters): the scene
      (K2, K1, the SAH build's wall time, the tables' bytes); on the
@@ -654,8 +660,8 @@ def hold_tiles(lt, name, launch, tris, label, **kw) -> tuple:
 
 
 def check_info(lt, name, label, **kw):
-    """Print a built list kernel's registers, spill and occupancy; fail if
-    it spills."""
+    """Print a built kernel's registers, spill and occupancy (``lt`` the
+    module of its wrapper); fail if it spills."""
     info = getattr(lt, f"{name}_info")(**kw)
     log(f"{label}: {info['registers']} registers, {info['local_bytes']} "
         f"local (spill) bytes per thread, {info['threads']} threads and "
@@ -664,6 +670,7 @@ def check_info(lt, name, label, **kw):
         f"per SM")
     if info["local_bytes"]:
         raise RuntimeError(f"{label} spills to local memory")
+    return info
 
 
 def tiles_phase(lt, name, bounds, cuda_ms, tris, held, timed, replaces,
@@ -2165,27 +2172,61 @@ def main() -> int:
         log(f"phase 5 list_tiles: {live_note(cnd, tris5)}; the guard let "
             f"{bounds.rounds_run(cnd, tris5, _stop)} of "
             f"{bounds.rounds_run(cnd, tris5)} live ray-rounds run")
-        err = hold("list_tiles_min (lane min of the unguarded walk)",
-                   lambda: pk.list_tiles_min(cnd, rays5, tris5),
-                   lambda: pk.list_tiles_min_plain(cnd, rays5, tris5))
+        # the union walk on the per-ray lists at maxc 32 and at the full
+        # maxc 48 kernel_shape builds; its time, tiles and sharing at 32
+        err = 0.0
+        for maxc in (32, kernel_shape.LIST_MAXC):
+            cm, _ctn = kernel_shape.per_ray_lists(ks, maxc)
+            err = max(err, hold(
+                f"list_tiles_min maxc={maxc} (lane min of the unguarded "
+                "walk)", lambda: pk.list_tiles_min(cm, rays5, tris5),
+                lambda: pk.list_tiles_min_plain(cm, rays5, tris5)))
+            info = check_info(pk, "list_tiles_min",
+                              f"phase 5 list_tiles_min maxc={maxc} at "
+                              f"{pk.LIST_MIN_RAYS} rays a block", maxc=maxc,
+                              ntiles=tris5.shape[0])
+            if info["threads"] != 32 * (pk.LIST_MIN_RAYS + 1):
+                raise RuntimeError("list_tiles_min's block is not "
+                                   "LIST_MIN_RAYS warps and a producer")
         probe_entry("list_tiles_min", "scratch/kernel_shape_bench.py:90",
                     lambda: pk.list_tiles_min(cnd, rays5, tris5),
                     lambda: pk.list_tiles_min(cnd, rays5, tris5,
                                               impl="plain"),
                     bounds.list_tiles_min_work(cnd, rays5, tris5), err,
                     f"{cnd.shape[0]} rays, maxc 32")
+        live, union = bounds.union_tiles(cnd, ks["k2"], pk.LIST_MIN_RAYS)
+        kernels[-1].update(
+            rays_per_block=pk.LIST_MIN_RAYS,
+            tile_bytes=union * bounds.TILE_BYTES,
+            tile_bytes_per_ray_round=live * bounds.TILE_BYTES,
+            sharing=live / union)
+        log(f"phase 5 list_tiles_min: "
+            f"{kernel_shape.sharing_note(cnd, ks['k2'], pk.LIST_MIN_RAYS)}"
+            f" at {pk.LIST_MIN_RAYS} rays a block")
 
-        # the synthetic round: every variant, every sub-block count
+        # the synthetic round: every variant, every sub-block count, from
+        # the probes' initial 0 and, for the MT variants, from +inf (the
+        # least t over lanes and rounds: the exact check of their work)
         mr = micro_round.workload(dev)
         cand_r, tris_r = mr["cand"], mr["tris"]
         err = 0.0
         for variant in pk.ROUND_VARIANTS:
-            plain_out = pk.round_probe(cand_r, tris_r, variant, impl="plain")
-            for sb in micro_round.SUBBLOCKS:
-                err = max(err, hold(
-                    f"round_probe {variant} sub-blocks={sb}",
-                    lambda: pk.round_probe(cand_r, tris_r, variant, sb),
-                    lambda: plain_out))
+            inits = (0.0, micro_round.INF) \
+                if variant in micro_round.MT_VARIANTS else (0.0,)
+            for init in inits:
+                plain_out = pk.round_probe(cand_r, tris_r, variant,
+                                           impl="plain", init=init)
+                for sb in micro_round.SUBBLOCKS:
+                    err = max(err, hold(
+                        f"round_probe {variant} sub-blocks={sb} "
+                        f"init={init}",
+                        lambda: pk.round_probe(cand_r, tris_r, variant, sb,
+                                               init=init),
+                        lambda: plain_out))
+            for sb in (1, micro_round.SUBBLOCKS[-1]):
+                check_info(pk, "round_probe",
+                           f"phase 5 round_probe {variant} sub-blocks={sb}",
+                           variant=variant, subblocks=sb)
         probe_entry("round_probe", "scratch/micro_copy.py:58",
                     lambda: pk.round_probe(cand_r, tris_r, "dynmt"),
                     lambda: pk.round_probe(cand_r, tris_r, "dynmt",
@@ -2193,6 +2234,7 @@ def main() -> int:
                     bounds.round_probe_work(cand_r, tris_r, "dynmt"), err,
                     f"dynmt, {cand_r.shape[0]} rays x {cand_r.shape[1]} "
                     "rounds, 1 sub-block")
+        kernels[-1]["staged_bytes"] = micro_round.staged_bytes(cand_r)
 
         # the feature smoke kernels on the scripts' own inputs
         g = feature_smoke.gather_inputs(dev)

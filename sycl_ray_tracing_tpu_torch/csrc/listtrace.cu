@@ -44,6 +44,9 @@
 
 namespace {
 
+using srt::cp_async16;
+using srt::cp_async_commit;
+using srt::cp_async_wait;
 using srt::kLanes;
 using srt::kMaxc;
 
@@ -87,30 +90,6 @@ __device__ __forceinline__ int compact_list(const int32_t* __restrict__ crow,
     n += __popc(on);
   }
   return n;
-}
-
-// 16 bytes global -> shared, asynchronously; through L2 only (.cg), or
-// through L1 too (.ca, kL1) where blocks of an SM name the same tiles.
-template <bool kL1 = false>
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if (kL1)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(gmem)
-                 : "memory");
-  else
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(gmem)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // Replaces _block_kernel_impl (sycl_ray_tracing_tpu/ops/pallas/

@@ -1,5 +1,6 @@
 // Moller-Trumbore of one ray against one triangle lane of a cluster tile,
-// shared by the list-tracer kernels (listtrace.cu) and the probe kernels
+// and the cp.async helpers that stage tiles in shared memory, shared by
+// the list-tracer kernels (listtrace.cu) and the probe kernels
 // (probes.cu).
 //
 // Arithmetic follows _mt8 (sycl_ray_tracing_tpu/ops/pallas/listtrace.py:
@@ -71,14 +72,28 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
-// Minimum of v over the 128 threads of a block (4 warps); every thread
-// gets it.  `scratch` holds 4 floats of shared memory; the caller makes
-// sure no thread still reads it from an earlier call.
-__device__ __forceinline__ float block_min128(float v, float* scratch) {
-  v = warp_min(v);
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  return fminf(fminf(scratch[0], scratch[1]), fminf(scratch[2], scratch[3]));
+// 16 bytes global -> shared, asynchronously; through L2 only (.cg), or
+// through L1 too (.ca, kL1) where blocks of an SM name the same tiles.
+template <bool kL1 = false>
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (kL1)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+  else
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 }  // namespace srt

@@ -11,42 +11,254 @@
 
 namespace {
 
+using srt::cp_async16;
+using srt::cp_async_commit;
+using srt::cp_async_wait;
 using srt::kLanes;
+using srt::kMaxc;
+
+constexpr int kTileFloats = 9 * kLanes;
+constexpr int kTilePieces = kTileFloats / 4;  // 16-byte cp.async pieces
+constexpr int kTileBytes = kTileFloats * (int)sizeof(float);
+constexpr int kLpt = kLanes / 32;     // lanes a thread holds: wlane + 32 j
+constexpr int kSlots = kMaxc / 32;    // list slots a lane holds
+constexpr int kMaxShared = 232448;    // the most a block may ask for
+
+// Allow a kernel the dynamic shared memory it takes beyond the 48 KB
+// default; fails above the card's limit.
+template <typename K>
+cudaError_t allow_shared(K kernel, int bytes) {
+  if (bytes > kMaxShared) return cudaErrorInvalidValue;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// info[0..4] = registers per thread, local (spill) bytes per thread,
+// resident blocks per SM, threads per block, shared bytes per block.
+template <typename K>
+int kernel_info(K kernel, int threads, int dyn_bytes, int* info) {
+  cudaError_t e = allow_shared(kernel, dyn_bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                    dyn_bytes);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = a.numRegs;
+  info[1] = (int)a.localSizeBytes;
+  info[2] = blocks;
+  info[3] = threads;
+  info[4] = (int)a.sharedSizeBytes + dyn_bytes;
+  return 0;
+}
 
 // ---------------------------------------------------------------------
 // list_tiles_min
 //
 // Replaces the in-kernel-reduction probe of scratch/kernel_shape_bench.py:
-// 83-115 (_list_kernel_impl plus jnp.min over lanes, output (B, 1)).
-// One CUDA block per ray, thread = lane, walking every live slot with no
-// tail guard (the per-ray kernel's first shape; listtrace.cu's
-// list_tiles_kernel has since been redesigned); after the rounds a
-// warp-shuffle + shared-memory min over the 128 lanes gives the ray's t.
-// Bound on an H100: FP32 issue (~60 operations per ray, lane and live
-// round); what the design removes is the [rays, 128] x 2 output (1 KB per
-// ray written, 4 B instead).
-__global__ void __launch_bounds__(kLanes)
+// 83-115 (_list_kernel_impl plus jnp.min over lanes, output (B, 1)): for
+// each ray, min(t_lim, min over every (tile, lane) its list names of
+// _mt8's t), every live slot, no tail guard.
+//
+// What bounds it on an H100: FP32 issue by the bound's count (~60
+// operations per ray, lane and live round, one issue slot each under
+// -fmad=false).  The first version (one 128-thread block per ray, a
+// dependent load of each slot's id and then of its tile) re-read each
+// ray's 4,608-byte tile in every live round: at 98,304 sorted rays and
+// maxc 32, 6.49 GB through L1/L2 a call for 7.4 MB of distinct tiles.
+// The design is a union walk, which stages each tile a block needs once:
+//  1. A block takes kMinRays = 8 consecutive (sorted) rays, one warp a
+//     ray (8 measured faster than 16 and 32 on an H100, PERF.md); a
+//     thread holds 4 of the 128 lanes (wlane + 32 j: consecutive threads
+//     read consecutive floats) and their running minima in registers.
+//  2. The block marks the tiles its rays' lists name in a shared bitset
+//     over the K2+1 tile ids (dummy slots unmarked; a tile named twice
+//     is marked once) and compacts it into the ascending list of its
+//     distinct tiles.
+//  3. Each distinct tile is staged once, into a kMinStages-deep
+//     shared-memory ring, by one 4,608-byte TMA bulk copy onto the
+//     stage's "full" mbarrier, issued as soon as every warp has released
+//     the stage ("empty"), by a producer warp of its own.  No
+//     __syncthreads in the walk: a
+//     warp waits only for its next tile to land, so warps whose lists
+//     name few of the block's tiles run up to kMinStages tiles ahead of
+//     one that tests many.
+//  4. A warp tests a staged tile only if its own ray's list names it: the
+//     list is held across the warp's lanes (kSlots slots a lane) and a
+//     ballot tests membership.  A tile outside the list is never tested:
+//     the lists are cut at maxc, so an unlisted cluster may hold a nearer
+//     hit.
+//  5. Each ray is reduced once, at the end, with a warp shuffle.
+// A float min is exact and independent of order, so walking the tiles in
+// union order gives the per-ray walk's bits.
+//
+// On the card this is slower than the first version (PERF.md): sorted
+// neighbours share fewer tiles than hoped (2-3.5 times fewer staged at
+// 8-32 rays a block), the tile bytes were not what held the first
+// version back, and a block pays a serial prologue (its lists, the
+// bitset, the first copy) and lasts as long as its longest list.  A
+// cp.async ring with a __syncthreads a tile, per-block balancing of the
+// (ray, tile) pairs, and a producer that arrives for the warps that do
+// not name a tile all measured slower still and were not kept.
+constexpr int kMinRays = 8;  // LIST_MIN_RAYS in ops/kernels/probes.py
+constexpr int kMinThreads = (kMinRays + 1) * 32;  // + the producer warp
+constexpr int kMinStages = 8;
+
+int min_words(int ntiles) { return (ntiles + 31) / 32; }
+
+// dynamic shared bytes: the ring, the distinct tiles, the bitset
+int min_shared_bytes(int maxc, int ntiles) {
+  return kMinStages * kTileBytes + 4 * kMinRays * maxc +
+         4 * min_words(ntiles);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// One TMA bulk copy global -> shared of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned), completing on `bar`, which this thread
+// first arms with the bytes to expect.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__global__ void __launch_bounds__(kMinThreads)
 list_tiles_min_kernel(const int32_t* __restrict__ cand,
                       const float* __restrict__ rays,
                       const float* __restrict__ tris,
-                      float* __restrict__ tmin_out, int maxc, int dummy) {
-  __shared__ float red[4];
-  const int row = blockIdx.x;
-  const int lane = threadIdx.x;
-  const float* ray = rays + (size_t)row * 8;
-  const float ox = ray[0], oy = ray[1], oz = ray[2];
-  const float dx = ray[3], dy = ray[4], dz = ray[5], tl = ray[6];
-  const int32_t* crow = cand + (size_t)row * maxc;
-  float at = tl;
-  for (int r = 0; r < maxc; ++r) {
-    const int c = crow[r];
-    if (c == dummy) continue;  // uniform across the block
-    const float t = srt::mt8(srt::load_lane(tris, c, lane), ox, oy, oz, dx,
-                             dy, dz, tl);
-    at = t < at ? t : at;
+                      float* __restrict__ tmin_out, int nrays, int maxc,
+                      int dummy, int nwords) {
+  extern __shared__ __align__(16) float ring[];  // [kMinStages][tile]
+  int32_t* utile = reinterpret_cast<int32_t*>(ring + kMinStages * kTileFloats);
+  unsigned* bits = reinterpret_cast<unsigned*>(utile + kMinRays * maxc);
+  __shared__ __align__(8) uint64_t full[kMinStages], empty[kMinStages];
+  __shared__ int snu;
+  const int tid = threadIdx.x;
+  const int wlane = tid & 31;
+  const int warp = tid / 32;
+  const int row = blockIdx.x * kMinRays + warp;
+  const bool real = warp < kMinRays && row < nrays;  // ragged: no list
+
+  if (tid == 0) {
+    for (int s = 0; s < kMinStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kMinRays);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const float m = srt::block_min128(at, red);
-  if (lane == 0) tmin_out[row] = m;
+  for (int w = tid; w < nwords; w += kMinThreads) bits[w] = 0u;
+  int c[kSlots];  // the warp's list: slot wlane + 32 j in c[j]
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int r = wlane + 32 * j;
+    c[j] = real && r < maxc ? cand[(size_t)row * maxc + r] : dummy;
+  }
+  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f, tl = 0.f;
+  if (real) {
+    const float* ray = rays + (size_t)row * 8;
+    ox = ray[0], oy = ray[1], oz = ray[2];
+    dx = ray[3], dy = ray[4], dz = ray[5], tl = ray[6];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j)
+    if (c[j] != dummy) atomicOr(&bits[c[j] >> 5], 1u << (c[j] & 31));
+  __syncthreads();
+  if (warp == 0) {  // the bitset -> the distinct tiles, ascending
+    int n = 0;
+    for (int w0 = 0; w0 < nwords; w0 += 32) {
+      unsigned word = w0 + wlane < nwords ? bits[w0 + wlane] : 0u;
+      const int cnt = __popc(word);
+      int inc = cnt;  // inclusive scan of the counts over the warp
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, inc, off);
+        if (wlane >= off) inc += y;
+      }
+      for (int k = n + inc - cnt; word; word &= word - 1u)
+        utile[k++] = (w0 + wlane) * 32 + __ffs(word) - 1;
+      n += __shfl_sync(0xffffffffu, inc, 31);
+    }
+    if (wlane == 0) snu = n;
+  }
+  __syncthreads();  // the last block-wide barrier
+  const int nu = snu;
+
+  if (warp == kMinRays) {  // the producer warp: tile k into its stage
+    for (int k = 0; wlane == 0 && k < nu; ++k) {
+      const int s = k % kMinStages;
+      if (k >= kMinStages)  // every warp is done with tile k - S
+        mbar_wait(&empty[s], (k / kMinStages - 1) & 1);
+      bulk_copy(ring + s * kTileFloats, tris + (size_t)utile[k] * kTileFloats,
+                kTileBytes, &full[s]);
+    }
+    return;
+  }
+  float at[kLpt];
+#pragma unroll
+  for (int j = 0; j < kLpt; ++j) at[j] = tl;
+  for (int k = 0; k < nu; ++k) {
+    const int s = k % kMinStages;
+    const int u = utile[k];
+    bool listed = false;
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) listed = listed || c[j] == u;
+    // every warp waits for every tile, so none releases a stage twice
+    // before the producer refills it
+    mbar_wait(&full[s], (k / kMinStages) & 1);
+    if (__any_sync(0xffffffffu, listed)) {  // uniform over the warp
+      const float* tile = ring + s * kTileFloats;
+#pragma unroll
+      for (int j = 0; j < kLpt; ++j) {
+        const float t = srt::mt8(srt::load_lane(tile, 0, wlane + 32 * j), ox,
+                                 oy, oz, dx, dy, dz, tl);
+        at[j] = t < at[j] ? t : at[j];
+      }
+    }
+    __syncwarp();
+    if (wlane == 0) mbar_arrive(&empty[s]);
+  }
+  float m = at[0];
+#pragma unroll
+  for (int j = 1; j < kLpt; ++j) m = fminf(m, at[j]);
+  m = srt::warp_min(m);
+  if (real && wlane == 0) tmin_out[row] = m;
 }
 
 // ---------------------------------------------------------------------
@@ -56,35 +268,64 @@ list_tiles_min_kernel(const int32_t* __restrict__ cand,
 // (variants dyncopy / statcopy / mtonly / dynmt, 8 rays per grid step)
 // and scratch/micro_super.py:16-39 (dynmt without the t > EPS test, 1 / 8
 // / 32 sub-blocks of 8 rays per grid step).  Per sub-block of kRb = 8 rays
-// and per round, the copy variants stack each ray's tile (its own cand
-// entry, or tile 7) into a [9, 8, 128] shared-memory tile and add plane 0
-// lane 0 to the ray's output; the MT variants run the probes' synthetic
-// Moller-Trumbore on the stacked tile (the tile's own planes stand in for
-// the ray) and keep min(out, lane-min of t).  Every output starts at 0,
-// so the MT outputs are identically 0 (t > EPS or 1e30; without the EPS
+// and per round, the copy variants stage each ray's whole tile (its own
+// cand entry, or tile 7) and add its plane 0, lane 0 to the ray's output;
+// the MT variants run the probes' synthetic Moller-Trumbore on the staged
+// tile (the tile's own planes stand in for the ray) and keep min(out, t)
+// over lanes and rounds.  Every output starts at `init`.  At the probes'
+// 0 the MT outputs are identically 0 (t > EPS or 1e30; without the EPS
 // test t is the same plane offset as u >= 0, so >= 0 up to rounding), on
-// the TPU too: the work is checked in the SASS (probes/micro_round.py),
-// not in the output.  mtonly reads a stacked tile that is zeroed once per
-// block (the TPU kernel's scratch was never written).
+// the TPU too; at +inf they are the least t over lanes and rounds, which
+// the checks hold against the plain version (probes/micro_round.py).
+// mtonly reads a staged tile that is zeroed once (the TPU kernel's
+// scratch was never written).
 //
-// Bound on an H100: the MT variants by FP32 issue (~46 operations per
-// ray, lane and round plus the lane min); the copy variants by the
-// launch (a few MB of tiles, all L2-resident).  The design keeps the
-// TPU's shape (a thread per lane, rays of a sub-block in turn) so the
-// probe measures the same per-round work; sub-blocks run in turn in one
-// CUDA block, as the TPU's grid step ran them.
+// What bounds it on an H100: the MT variants by FP32 issue (~46
+// operations per ray, lane and round); the copy variants by the tiles
+// they stage (4,096 x 8 x 16 x 4,608 B = 2.42 GB through L2 a call),
+// although their output reads only plane 0, lane 0 of each.  The first
+// version carried the TPU's grid step over block by block: the 8 rays of
+// a sub-block in turn in one 128-thread block, 72 scalar loads a thread
+// into a shared stack, three __syncthreads and eight 128-lane min
+// reductions a round, copy and MT one after the other, and sub-blocks in
+// turn (at 32 sub-blocks, 128 blocks of 4 warps on 132 SMs).  The design:
+//  1. A warp a ray, a thread holding 4 lanes.  Each warp stages its ray's
+//     tiles through its own kRoundStages-deep ring with 16-byte cp.async
+//     (2 rounds x 8 tiles x 4,608 B = 73.7 KB a sub-block, dynamic shared
+//     memory), so round r+1's tiles are in flight while round r runs; a
+//     warp waits on its own copies and a __syncwarp, never on the block.
+//  2. The MT variants keep each lane's running min in registers and
+//     reduce once per ray, at the end of its sub-block (a warp shuffle):
+//     the same bits as a reduction every round, the min being exact.
+//  3. A block runs up to kRoundTeams sub-blocks at once (a team of 8 warps
+//     each) and walks its `subblocks` sub-blocks as a persistent loop,
+//     team t taking sub-blocks t, t + teams, ...; each warp's ring runs
+//     on across its sub-block boundaries.  So at 32 sub-blocks a block
+//     each of 128 SMs still holds 24 warps.
 constexpr int kRb = 8;
+constexpr int kRoundStages = 2;
+constexpr int kRoundTeams = 3;
+constexpr int kStaticTile = 7;
+constexpr int kRoundWarpFloats = kRoundStages * kTileFloats;
 enum Variant { kDynCopy = 0, kStatCopy = 1, kMtOnly = 2, kDynMt = 3,
                kDynMtNoEps = 4 };
 
+int round_teams(int subblocks) {
+  return subblocks < kRoundTeams ? subblocks : kRoundTeams;
+}
+
+int round_shared_bytes(int teams) {
+  return teams * kRb * kRoundWarpFloats * (int)sizeof(float);
+}
+
 template <int V>
-__device__ __forceinline__ float synth_mt(const float (*stk)[kRb][kLanes],
-                                          int i, int lane) {
-  const float p0 = stk[0][i][lane], p1 = stk[1][i][lane],
-              p2 = stk[2][i][lane], p3 = stk[3][i][lane],
-              p4 = stk[4][i][lane], p5 = stk[5][i][lane],
-              p6 = stk[6][i][lane], p7 = stk[7][i][lane],
-              p8 = stk[8][i][lane];
+__device__ __forceinline__ float synth_mt(const float* __restrict__ tile,
+                                          int lane) {
+  const float p0 = tile[0 * kLanes + lane], p1 = tile[1 * kLanes + lane],
+              p2 = tile[2 * kLanes + lane], p3 = tile[3 * kLanes + lane],
+              p4 = tile[4 * kLanes + lane], p5 = tile[5 * kLanes + lane],
+              p6 = tile[6 * kLanes + lane], p7 = tile[7 * kLanes + lane],
+              p8 = tile[8 * kLanes + lane];
   const float e1x = p3 - p0, e1y = p4 - p1, e1z = p5 - p2;
   const float e2x = p6 - p0, e2y = p7 - p1, e2z = p8 - p2;
   const float hx = e1y * e2z - e1z * e2y;
@@ -101,52 +342,94 @@ __device__ __forceinline__ float synth_mt(const float (*stk)[kRb][kLanes],
 }
 
 template <int V>
-__global__ void __launch_bounds__(kLanes)
+__global__ void __launch_bounds__(kRoundTeams * kRb * 32, 1)
 round_probe_kernel(const int32_t* __restrict__ cand,
                    const float* __restrict__ tris, float* __restrict__ out,
-                   int rounds, int subblocks) {
-  __shared__ float stk[9][kRb][kLanes];
-  __shared__ float red[kRb][4];
-  constexpr bool kCopyDyn = V == kDynCopy || V == kDynMt || V == kDynMtNoEps;
+                   int rounds, int subblocks, float init) {
   constexpr bool kMt = V == kMtOnly || V == kDynMt || V == kDynMtNoEps;
-  const int lane = threadIdx.x;
-  if (V == kMtOnly) {
-    for (int c = 0; c < 9; ++c)
-      for (int i = 0; i < kRb; ++i) stk[c][i][lane] = 0.0f;
-  }
-  for (int s = 0; s < subblocks; ++s) {
-    const size_t row0 = ((size_t)blockIdx.x * subblocks + s) * kRb;
-    float o = 0.0f;  // thread i < kRb holds ray row0 + i
-    for (int r = 0; r < rounds; ++r) {
-      if (kCopyDyn || V == kStatCopy) {
-#pragma unroll
-        for (int i = 0; i < kRb; ++i) {
-          const int k = V == kStatCopy ? 7 : cand[(row0 + i) * rounds + r];
-          const float* tile = tris + (size_t)k * 9 * kLanes + lane;
-#pragma unroll
-          for (int c = 0; c < 9; ++c) stk[c][i][lane] = tile[c * kLanes];
-        }
-      }
-      __syncthreads();
-      if (kMt) {
-#pragma unroll
-        for (int i = 0; i < kRb; ++i) {
-          float m = synth_mt<V>(stk, i, lane);
-          for (int off = 16; off > 0; off >>= 1)
-            m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
-          if ((lane & 31) == 0) red[i][lane >> 5] = m;
-        }
-        __syncthreads();
-        if (lane < kRb)
-          o = fminf(o, fminf(fminf(red[lane][0], red[lane][1]),
-                             fminf(red[lane][2], red[lane][3])));
-      } else if (lane < kRb) {
-        o = o + stk[0][lane][0];
-      }
-      __syncthreads();  // the next round overwrites stk and red
+  constexpr bool kCopy = V != kMtOnly;
+  extern __shared__ __align__(16) float ring[];  // [warp][stage][tile]
+  const int warp = threadIdx.x / 32;
+  const int wlane = threadIdx.x & 31;
+  const int teams = blockDim.x / (kRb * 32);
+  const int team = warp / kRb;
+  const int i = warp % kRb;  // the warp's ray within its sub-block
+  float* stage = ring + warp * kRoundWarpFloats;
+  // the team's sub-blocks team, team + teams, ..., `rounds` steps each
+  const int steps = (subblocks - team + teams - 1) / teams * rounds;
+  auto row_of = [&](int q) {
+    const int s = team + q / rounds * teams;
+    return ((size_t)blockIdx.x * subblocks + s) * kRb + i;
+  };
+  auto fetch = [&](int q) {  // step q's tile into stage q % kRoundStages
+    if (kCopy && q < steps) {
+      const int k = V == kStatCopy ? kStaticTile
+                                   : cand[row_of(q) * rounds + q % rounds];
+      const float* src = tris + (size_t)k * kTileFloats;
+      float* dst = stage + (q % kRoundStages) * kTileFloats;
+      for (int e = wlane; e < kTilePieces; e += 32)
+        cp_async16<true>(dst + 4 * e, src + 4 * e);
     }
-    if (lane < kRb) out[row0 + lane] = o;
+    cp_async_commit();  // one group a call, empty or not
+  };
+  if (V == kMtOnly) {
+    for (int e = wlane; e < kTileFloats; e += 32) stage[e] = 0.0f;
+    __syncwarp();
   }
+  for (int q = 0; q < kRoundStages - 1; ++q) fetch(q);
+  float m[kLpt];
+#pragma unroll
+  for (int j = 0; j < kLpt; ++j) m[j] = init;
+  float o = init;
+  for (int q = 0, r = 0; q < steps; ++q) {
+    fetch(q + kRoundStages - 1);  // into step q-1's stage, read by now
+    cp_async_wait<kRoundStages - 1>();  // this thread's pieces of step q
+    __syncwarp();                       // and the warp's
+    const float* tile =
+        kCopy ? stage + (q % kRoundStages) * kTileFloats : stage;
+    if (kMt) {
+#pragma unroll
+      for (int j = 0; j < kLpt; ++j)
+        m[j] = fminf(m[j], synth_mt<V>(tile, wlane + 32 * j));
+    } else {
+      o = o + tile[0];
+    }
+    if (++r == rounds) {  // the end of a sub-block: its ray's output
+      r = 0;
+      if (kMt) {
+        o = m[0];
+#pragma unroll
+        for (int j = 1; j < kLpt; ++j) o = fminf(o, m[j]);
+        o = srt::warp_min(o);
+#pragma unroll
+        for (int j = 0; j < kLpt; ++j) m[j] = init;
+      }
+      if (wlane == 0) out[row_of(q)] = o;
+      o = init;
+    }
+    __syncwarp();  // the warp is done with step q's stage
+  }
+  cp_async_wait<0>();
+}
+
+template <int V>
+int launch_round_probe(const int32_t* cand, const float* tris, float* out,
+                       int grid, int rounds, int subblocks, float init,
+                       cudaStream_t s) {
+  const int teams = round_teams(subblocks);
+  const int bytes = round_shared_bytes(teams);
+  const cudaError_t e = allow_shared(round_probe_kernel<V>, bytes);
+  if (e != cudaSuccess) return (int)e;
+  round_probe_kernel<V><<<grid, teams * kRb * 32, bytes, s>>>(
+      cand, tris, out, rounds, subblocks, init);
+  return (int)cudaGetLastError();
+}
+
+template <int V>
+int round_probe_info(int subblocks, int* info) {
+  const int teams = round_teams(subblocks);
+  return kernel_info(round_probe_kernel<V>, teams * kRb * 32,
+                     round_shared_bytes(teams), info);
 }
 
 // ---------------------------------------------------------------------
@@ -284,56 +567,85 @@ mosaic_probe_kernel(const int32_t* __restrict__ ns,
 
 extern "C" {
 
-// Each entry point launches on the caller's stream and returns
+// Each launching entry point launches on the caller's stream and returns
 // cudaGetLastError() (0 on success); it never synchronises.
+// dummy = K2, the last tile's id.
 int srt_list_tiles_min(const void* cand, const void* rays, const void* tris,
                        void* tmin, int nrays, int maxc, int dummy,
                        void* stream) {
-  if (maxc < 1 || maxc > srt::kMaxc) return (int)cudaErrorInvalidValue;
-  if (nrays > 0)
-    list_tiles_min_kernel<<<nrays, kLanes, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)cand, (const float*)rays, (const float*)tris,
-        (float*)tmin, maxc, dummy);
+  if (maxc < 1 || maxc > kMaxc || dummy < 0)
+    return (int)cudaErrorInvalidValue;
+  if (nrays < 1) return (int)cudaGetLastError();
+  const int ntiles = dummy + 1;
+  const int bytes = min_shared_bytes(maxc, ntiles);
+  const cudaError_t e = allow_shared(list_tiles_min_kernel, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (nrays + kMinRays - 1) / kMinRays;
+  list_tiles_min_kernel<<<grid, kMinThreads, bytes, (cudaStream_t)stream>>>(
+      (const int32_t*)cand, (const float*)rays, (const float*)tris,
+      (float*)tmin, nrays, maxc, dummy, min_words(ntiles));
   return (int)cudaGetLastError();
 }
 
+// info[0..4] as kernel_info, for lists of maxc slots over ntiles tiles.
+int srt_list_tiles_min_info(int maxc, int ntiles, int* info) {
+  if (maxc < 1 || maxc > kMaxc || ntiles < 1)
+    return (int)cudaErrorInvalidValue;
+  return kernel_info(list_tiles_min_kernel, kMinThreads,
+                     min_shared_bytes(maxc, ntiles), info);
+}
+
 // variant: 0 dyncopy, 1 statcopy, 2 mtonly, 3 dynmt, 4 dynmt without the
-// t > EPS test; rows = grid * subblocks * 8.
+// t > EPS test; rows = grid * subblocks * 8; every output starts at init.
 int srt_round_probe(const void* cand, const void* tris, void* out, int grid,
-                    int rounds, int subblocks, int variant, void* stream) {
+                    int rounds, int subblocks, int variant, float init,
+                    void* stream) {
   if (grid < 0 || rounds < 1 || subblocks < 1)
     return (int)cudaErrorInvalidValue;
+  if (grid == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   const int32_t* c = (const int32_t*)cand;
   const float* t = (const float*)tris;
   float* o = (float*)out;
-  if (grid > 0) {
-    switch (variant) {
-      case kDynCopy:
-        round_probe_kernel<kDynCopy><<<grid, kLanes, 0, s>>>(c, t, o, rounds,
-                                                             subblocks);
-        break;
-      case kStatCopy:
-        round_probe_kernel<kStatCopy><<<grid, kLanes, 0, s>>>(c, t, o, rounds,
-                                                              subblocks);
-        break;
-      case kMtOnly:
-        round_probe_kernel<kMtOnly><<<grid, kLanes, 0, s>>>(c, t, o, rounds,
-                                                            subblocks);
-        break;
-      case kDynMt:
-        round_probe_kernel<kDynMt><<<grid, kLanes, 0, s>>>(c, t, o, rounds,
-                                                           subblocks);
-        break;
-      case kDynMtNoEps:
-        round_probe_kernel<kDynMtNoEps><<<grid, kLanes, 0, s>>>(
-            c, t, o, rounds, subblocks);
-        break;
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
+  switch (variant) {
+    case kDynCopy:
+      return launch_round_probe<kDynCopy>(c, t, o, grid, rounds, subblocks,
+                                          init, s);
+    case kStatCopy:
+      return launch_round_probe<kStatCopy>(c, t, o, grid, rounds, subblocks,
+                                           init, s);
+    case kMtOnly:
+      return launch_round_probe<kMtOnly>(c, t, o, grid, rounds, subblocks,
+                                         init, s);
+    case kDynMt:
+      return launch_round_probe<kDynMt>(c, t, o, grid, rounds, subblocks,
+                                        init, s);
+    case kDynMtNoEps:
+      return launch_round_probe<kDynMtNoEps>(c, t, o, grid, rounds,
+                                             subblocks, init, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+}
+
+// info[0..4] as kernel_info, for the variant at `subblocks` sub-blocks a
+// block.
+int srt_round_probe_info(int variant, int subblocks, int* info) {
+  if (subblocks < 1) return (int)cudaErrorInvalidValue;
+  switch (variant) {
+    case kDynCopy:
+      return round_probe_info<kDynCopy>(subblocks, info);
+    case kStatCopy:
+      return round_probe_info<kStatCopy>(subblocks, info);
+    case kMtOnly:
+      return round_probe_info<kMtOnly>(subblocks, info);
+    case kDynMt:
+      return round_probe_info<kDynMt>(subblocks, info);
+    case kDynMtNoEps:
+      return round_probe_info<kDynMtNoEps>(subblocks, info);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 int srt_smoke_gather(const void* cid, const void* table, const void* rays,

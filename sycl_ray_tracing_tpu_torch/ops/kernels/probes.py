@@ -5,12 +5,13 @@ probe_mosaic.py).  No program path calls them; the probe entry point
 (``python -m sycl_ray_tracing_tpu_torch.probes``) does.
 
 Kernels (csrc/probes.cu, CUDA C++ for sm_90a, -fmad=false):
-  * ``list_tiles_min``: the first per-ray list kernel (one CUDA block per
-    ray, every live round, no tail guard) with the lane min inside, one t
-    per ray (kernel_shape_bench.py:90).
+  * ``list_tiles_min``: the unguarded per-ray list walk with the lane min
+    inside, one t per ray (kernel_shape_bench.py:90), as a union walk:
+    a block of LIST_MIN_RAYS rays stages each distinct tile its lists
+    name once and tests it for the rays that list it.
   * ``round_probe``: one synthetic list round per variant (tile gather,
     static gather, MT only, both; micro_copy.py:58) and sub-blocks per
-    CUDA block (micro_super.py:47).
+    CUDA block (micro_super.py:47), each output starting at ``init``.
   * ``smoke_gather``, ``smoke_rank_select``, ``mosaic_probe``: the Pallas
     feature smoke kernels (pallas_smoke.py:67, pallas_smoke2.py:61,
     probe_mosaic.py:59).
@@ -31,6 +32,12 @@ from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as lt
 from sycl_ray_tracing_tpu_torch.ops.safe_math import EPS
 
 CSRC = lt.CSRC_DIR / "probes.cu"
+
+# list_tiles_min's rays (warps) per CUDA block, kMinRays in
+# csrc/probes.cu: the fastest of 8 / 16 / 32 on an H100 (PERF.md)
+LIST_MIN_RAYS = 8
+# lanes of a tile each thread of the redesigned kernels holds
+LANES_PER_THREAD = 4
 
 # micro_copy.py / micro_super.py: rays per sub-block, the static tile of
 # statcopy; the variants in the C entry point's order
@@ -64,10 +71,12 @@ def load_cuda_library() -> ctypes.CDLL:
         path = build_shared_library([CSRC], "libprobes", [lt.nvcc_path()],
                                     lt.NVCC_FLAGS, lt.HEADERS)
         lib = ctypes.CDLL(str(path))
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for name, args in (
             ("srt_list_tiles_min", [p] * 4 + [i] * 3 + [p]),
-            ("srt_round_probe", [p] * 3 + [i] * 4 + [p]),
+            ("srt_list_tiles_min_info", [i, i, p]),
+            ("srt_round_probe", [p] * 3 + [i] * 4 + [f, p]),
+            ("srt_round_probe_info", [i, i, p]),
             ("srt_smoke_gather", [p] * 4 + [i, p]),
             ("srt_smoke_rank_select", [p] * 4),
             ("srt_mosaic_probe", [p] * 4 + [i, p]),
@@ -121,12 +130,14 @@ def list_tiles_min_plain(cand, rays, tris):
 
 
 def list_tiles_min(cand, rays, tris, impl=None):
-    """The per-ray list kernel reduced over lanes inside the kernel.
+    """The per-ray list walk reduced over lanes inside the kernel.
     cand i32 [B, maxc], rays f32 [B, 8], tris f32 [K2+1, 9, 128] ->
     t f32 [B] (the ray's t_lim where nothing is nearer)."""
     lt._check_tile_args(cand, rays, tris, cand.shape[0])
     if _use_plain("list_tiles_min", impl, cand, rays, tris):
         return list_tiles_min_plain(cand, rays, tris)
+    if tris.data_ptr() % 16:
+        raise ValueError("tris must be 16-byte aligned (TMA bulk copy)")
     n = cand.shape[0]
     out = torch.empty((n,), dtype=torch.float32, device=cand.device)
     if n:
@@ -134,6 +145,14 @@ def list_tiles_min(cand, rays, tris, impl=None):
               rays.data_ptr(), tris.data_ptr(), out.data_ptr(), n,
               cand.shape[1], tris.shape[0] - 1)
     return out
+
+
+def list_tiles_min_info(maxc: int, ntiles: int) -> dict:
+    """The built union-walk kernel's registers, spill, shared bytes and
+    occupancy for lists of ``maxc`` slots over ``ntiles`` (K2+1) tiles."""
+    return lt._info("list_tiles_min",
+                    load_cuda_library().srt_list_tiles_min_info, maxc,
+                    ntiles)
 
 
 # ---- round_probe ------------------------------------------------------
@@ -158,11 +177,13 @@ def _synth_mt(p, eps_test: bool):
     return torch.where(ok, t, 1e30)
 
 
-def round_probe_plain(cand, tris, variant: str):
+def round_probe_plain(cand, tris, variant: str, init: float = 0.0):
     """Plain version of round_probe: out [rows, 1] f32 from cand i32
-    [rows, R] and tris f32 [K, 9, 128]; sub-blocks do not change it."""
+    [rows, R] and tris f32 [K, 9, 128], every output starting at
+    ``init``; sub-blocks do not change it."""
     rows, rounds = cand.shape
-    out = torch.zeros((rows, 1), dtype=torch.float32, device=cand.device)
+    out = torch.full((rows, 1), init, dtype=torch.float32,
+                     device=cand.device)
     if variant == "mtonly":
         # the kernel's stacked tile is zero and never written
         zero = torch.zeros((rows, T_CLUSTER), dtype=torch.float32,
@@ -183,10 +204,12 @@ def round_probe_plain(cand, tris, variant: str):
     return out
 
 
-def round_probe(cand, tris, variant: str, subblocks: int = 1, impl=None):
+def round_probe(cand, tris, variant: str, subblocks: int = 1, impl=None,
+                init: float = 0.0):
     """One synthetic list round per variant (see csrc/probes.cu).
     cand i32 [rows, R] (rows a multiple of 8 * subblocks), tris f32
-    [K, 9, 128] -> out f32 [rows, 1]."""
+    [K, 9, 128] -> out f32 [rows, 1], every output starting at ``init``
+    (the probes' 0; +inf makes the MT variants' output the least t)."""
     if variant not in ROUND_VARIANTS:
         raise ValueError(f"variant must be one of {ROUND_VARIANTS}")
     if cand.dim() != 2 or tris.dim() != 3:
@@ -200,14 +223,23 @@ def round_probe(cand, tris, variant: str, subblocks: int = 1, impl=None):
     if rounds < 1 or tris.shape[0] <= STATIC_TILE:
         raise ValueError("need at least one round and 8 tiles")
     if _use_plain("round_probe", impl, cand, tris):
-        return round_probe_plain(cand, tris, variant)
+        return round_probe_plain(cand, tris, variant, init)
+    if tris.data_ptr() % 16:
+        raise ValueError("tris must be 16-byte aligned (cp.async)")
     out = torch.empty((rows, 1), dtype=torch.float32, device=cand.device)
     grid = rows // (ROUND_RB * subblocks)
     if grid:
         _call("round_probe", cand.device, cand.data_ptr(), tris.data_ptr(),
               out.data_ptr(), grid, rounds, subblocks,
-              ROUND_VARIANTS.index(variant))
+              ROUND_VARIANTS.index(variant), float(init))
     return out
+
+
+def round_probe_info(variant: str, subblocks: int = 1) -> dict:
+    """The built variant's registers, spill, shared bytes and occupancy
+    at ``subblocks`` sub-blocks a block."""
+    return lt._info("round_probe", load_cuda_library().srt_round_probe_info,
+                    ROUND_VARIANTS.index(variant), subblocks)
 
 
 # ---- smoke_gather -----------------------------------------------------

@@ -113,6 +113,21 @@ def list_tiles_min_work(cand, rays, tris) -> tuple[float, float]:
     return ops + n * (LANES - 1), nbytes - n * LANES * 8 + n * 4
 
 
+def union_tiles(cand, dummy: int, rays_per_block: int) -> tuple[int, int]:
+    """(live ray-rounds, distinct tiles summed over blocks) of lists taken
+    ``rays_per_block`` consecutive rays a block: the tiles a per-ray walk
+    reads (one a live round) and those a union walk stages (each distinct
+    tile of a block once).  Their ratio is the sharing factor."""
+    n, maxc = cand.shape
+    pad = -n % rays_per_block
+    ids = torch.cat([cand, torch.full((pad, maxc), dummy, dtype=cand.dtype,
+                                      device=cand.device)])
+    ids = ids.view(-1, rays_per_block * maxc).sort(dim=1).values
+    first = torch.ones_like(ids, dtype=torch.bool)
+    first[:, 1:] = ids[:, 1:] != ids[:, :-1]
+    return int((cand != dummy).sum()), int((first & (ids != dummy)).sum())
+
+
 def round_probe_work(cand, tris, variant: str) -> tuple[float, float]:
     """The copy variants' output is the sum of plane 0, lane 0 of the
     tiles (dyncopy: those cand names; statcopy: tile 7, cand unread); the

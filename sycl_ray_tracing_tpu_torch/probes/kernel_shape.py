@@ -1,11 +1,14 @@
 """Kernel-shape sweep on the card (counterpart of
 scratch/kernel_shape_bench.py): the per-ray list kernel (with its tail
 guard) at 1 / 8 / 16 / 32 rays per CUDA block (the TPU kernel's RB) x
-maxc 16 / 32, the unguarded per-ray kernel with the lane min inside (one
-t per ray out), and the block-shared
-kernel at maxc 48 / 96 on grouped lists; all on one all-live surface
-wavefront of 98,304 sorted rays over the 200k-triangle dragon stand-in.
-Reports ms and ns per ray.
+maxc 16 / 32, the unguarded per-ray walk with the lane min inside (one t
+per ray out; the "union" lines, kernel_shape_bench.py's "inkred") at
+maxc 32 and 48, and the block-shared kernel at maxc 48 / 96 on grouped
+lists; all on one all-live surface wavefront of 98,304 sorted rays over
+the 200k-triangle dragon stand-in.  Reports ms and ns per ray.  The
+union lines also give the tiles the walk stages a call against those a
+per-ray walk reads (one a live ray-round) and their ratio, the sharing
+factor, at pk.LIST_MIN_RAYS rays a block.
 
     python -m sycl_ray_tracing_tpu_torch.probes kernel_shape
 """
@@ -64,6 +67,22 @@ def block_lists(work: dict, maxc: int):
             work["ctng"][:, :maxc].contiguous())
 
 
+def sharing_note(cand, k2: int, rays_per_block: int) -> str:
+    """The tile bytes a union walk of ``rays_per_block`` rays a block
+    stages a call, those a per-ray walk reads, and their ratio; and the
+    blocks' imbalance: the sum over blocks of their longest list over
+    the mean list times blocks (a block lasts as long as its longest)."""
+    live, union = bounds.union_tiles(cand, k2, rays_per_block)
+    n = (cand != k2).sum(dim=1)
+    n = torch.cat([n, n.new_zeros(-n.shape[0] % rays_per_block)])
+    longest = int(n.view(-1, rays_per_block).amax(dim=1).sum())
+    return (f"tiles staged {union * bounds.TILE_BYTES / 1e9:.4f} GB "
+            f"({union} tiles) vs {live * bounds.TILE_BYTES / 1e9:.4f} GB "
+            f"per ray-round ({live}), sharing factor "
+            f"{live / max(union, 1):.2f}, imbalance "
+            f"{longest * rays_per_block / max(live, 1):.3f}")
+
+
 def run(scene, reps: int = 5, work: dict | None = None):
     work = work or workload(scene)
     rays, tris, k2 = work["rays"], work["tris"], work["k2"]
@@ -84,11 +103,14 @@ def run(scene, reps: int = 5, work: dict | None = None):
     cnd, ctn = per_ray_lists(work, 32)
     plain_line("per-ray maxc=32", lambda: lt.list_tiles_plain(cnd, ctn, rays,
                                                               tris))
-    ms = cuda_ms(lambda: pk.list_tiles_min(cnd, rays, tris), reps)
-    print(f"per-ray rb= 1 mc=32 inkred: {ms:8.4f} ms "
-          f"({ms * 1e6 / B:7.2f} ns/ray), "
-          f"{bound_note(bounds.list_tiles_min_work(cnd, rays, tris))}",
-          flush=True)
+    for maxc in (32, LIST_MAXC):
+        cnd, _ctn = per_ray_lists(work, maxc)
+        ms = cuda_ms(lambda: pk.list_tiles_min(cnd, rays, tris), reps)
+        print(f"per-ray rb={pk.LIST_MIN_RAYS:2d} maxc={maxc:2d} union: "
+              f"{ms:8.4f} ms ({ms * 1e6 / B:7.2f} ns/ray), "
+              f"{sharing_note(cnd, k2, pk.LIST_MIN_RAYS)}, "
+              f"{bound_note(bounds.list_tiles_min_work(cnd, rays, tris))}",
+              flush=True)
     for maxc in (48, 96):
         cnd, ctn = block_lists(work, maxc)
         ms = cuda_ms(lambda: lt.block_tiles(cnd, ctn, rays, tris), reps)

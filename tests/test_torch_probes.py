@@ -567,16 +567,124 @@ def test_bounds_count_live_work():
 
 
 def test_round_probe_time_check():
-    """The work check of the zero-output MT variants passes their times
-    as measured and raises when an MT variant runs as fast as its round
-    without the MT."""
-    times = dict(dyncopy=0.314, statcopy=0.0903, mtonly=0.2761,
-                 dynmt=0.4646, dynmt_noeps=0.4595)
+    """The time floor, now mtonly's alone (its zeroed tile gives 1e30
+    from any initial value, so no value shows its work): it passes the
+    times as measured and raises when mtonly runs as fast as statcopy.
+    dynmt overlapping its copy (as fast as dyncopy) is no fault: the
+    exact check holds its work."""
+    times = dict(dyncopy=0.3096, statcopy=0.1067, mtonly=0.2282,
+                 dynmt=0.3644, dynmt_noeps=0.3614)
     micro_round.time_check(times)
-    with pytest.raises(RuntimeError, match="dynmt"):
-        micro_round.time_check(dict(times, dynmt=0.32))
+    micro_round.time_check(dict(times, dynmt=0.3096, dynmt_noeps=0.3096))
     with pytest.raises(RuntimeError, match="mtonly"):
         micro_round.time_check(dict(times, mtonly=0.09))
+
+
+def test_round_probe_exact_check(monkeypatch):
+    """The exact check passes kernels equal to the plain version at +inf
+    and raises on a kernel that skipped a round."""
+    w = micro_round.workload("cpu", nb=32, rounds=3, k2=16)
+    micro_round.exact_check(w["cand"], w["tris"])
+    real = PK.round_probe
+
+    def one_round_short(cand, tris, variant, subblocks=1, impl=None,
+                        init=0.0):
+        if impl == "plain":
+            return real(cand, tris, variant, impl="plain", init=init)
+        return real(cand[:, :-1].contiguous(), tris, variant, subblocks,
+                    init=init)
+
+    monkeypatch.setattr(PK, "round_probe", one_round_short)
+    with pytest.raises(RuntimeError, match="differs"):
+        micro_round.exact_check(w["cand"], w["tris"])
+
+
+@pytest.mark.parametrize("variant", micro_round.MT_VARIANTS)
+def test_round_probe_init_inf(variant):
+    """From an initial 0 an MT variant's output is min(0, its output from
+    +inf), which is the least synthetic t over lanes and rounds: finite,
+    non-zero and not constant for dynmt."""
+    w = micro_round.workload("cpu", nb=4, rounds=4, k2=16)
+    cand, tris = w["cand"], w["tris"]
+    zero = PK.round_probe_plain(cand, tris, variant)
+    inf = PK.round_probe_plain(cand, tris, variant, init=float("inf"))
+    assert torch.equal(zero, torch.minimum(torch.zeros_like(inf), inf))
+    assert torch.equal(PK.round_probe(cand, tris, variant, 2,
+                                      init=float("inf")), inf)
+    if variant == "dynmt":
+        assert torch.isfinite(inf).all() and (inf != 0).all()
+        assert inf.unique().numel() > 1
+    if variant == "mtonly":
+        assert (inf == 1e30).all()          # the zeroed tile never hits
+
+
+def _union_scene(k2: int, n: int, seed: int = 3):
+    """k2 tiles of random triangles in a unit box (plus the zero dummy)
+    and n rays from a sphere of radius 3 toward the box: many hits."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-0.5, 0.5, (k2, 1, 3, T))
+    tri = a + rng.normal(scale=0.25, size=(k2, 3, 3, T))
+    tris = np.concatenate([tri.reshape(k2, 9, T),
+                           np.zeros((1, 9, T))]).astype(np.float32)
+    o = rng.normal(size=(n, 3))
+    o = 3.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = rng.uniform(-0.4, 0.4, (n, 3)) - o
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    tl = np.full((n, 1), BIG_T)
+    tl[::4] = 3.0                                     # some short limits
+    rays = np.concatenate([o, d, tl, np.zeros((n, 1))], axis=1)
+    return (torch.tensor(rays, dtype=torch.float32),
+            torch.tensor(tris))
+
+
+def _union_walk(cand, rays, tris, rb):
+    """The union walk's order: per block of rb rays, each distinct listed
+    tile in ascending id, tested only for the rays whose list names it.
+    Returns (t [n], tiles staged)."""
+    dummy = tris.shape[0] - 1
+    at = rays[:, 6:7].expand(-1, T).clone()
+    staged = 0
+    for b0 in range(0, cand.shape[0], rb):
+        blk = cand[b0:b0 + rb]
+        for u in torch.unique(blk).tolist():
+            if u == dummy:
+                continue
+            staged += 1
+            rows = b0 + torch.nonzero((blk == u).any(dim=1)).flatten()
+            r = rays[rows]
+            t = PL._mt8(*[tris[u, c][None] for c in range(9)],
+                        *[r[:, c:c + 1] for c in range(7)])
+            at[rows] = torch.where(t < at[rows], t, at[rows])
+    return at.amin(dim=1), staged
+
+
+@pytest.mark.parametrize("case", ["twice", "all_dummy_block", "ragged",
+                                  "maxc128"])
+def test_list_tiles_min_union_order(case):
+    """The union walk's order gives list_tiles_min_plain's bits: a list
+    naming a tile twice, a block of empty lists, a ragged last block,
+    maxc 128 (4 slots a lane); its staged tiles are bounds.union_tiles'."""
+    rb, k2 = PK.LIST_MIN_RAYS, 40
+    n = {"ragged": 2 * rb + 5}.get(case, 3 * rb)
+    maxc = 128 if case == "maxc128" else 10
+    rays, tris = _union_scene(k2, n)
+    rng = np.random.default_rng(7)
+    cand = rng.integers(0, k2, (n, maxc))
+    cand[rng.random((n, maxc)) < 0.3] = k2            # dummy slots
+    if case == "twice":
+        cand[:, 1] = cand[:, 0]
+    if case == "all_dummy_block":
+        cand[rb:2 * rb] = k2
+    cand = torch.tensor(cand, dtype=torch.int32)
+    want = PK.list_tiles_min_plain(cand, rays, tris)
+    got, staged = _union_walk(cand, rays, tris, rb)
+    assert torch.equal(got, want)
+    assert torch.equal(PK.list_tiles_min(cand, rays, tris), want)
+    assert (want < BIG_T).any()
+    live, union = bounds.union_tiles(cand, k2, rb)
+    assert union == staged and live == int((cand != k2).sum())
+    if case == "all_dummy_block":
+        assert torch.equal(want[rb:2 * rb], rays[rb:2 * rb, 6])
 
 
 def test_chunk_workload_small():

@@ -44,11 +44,16 @@ Phases (any failure exits non-zero):
      synthetic round in every variant at 1 / 8 / 32 sub-blocks from the
      probes' initial 0 and, for the MT variants, from +inf, with its
      registers, spill and occupancy; the three feature smoke kernels,
-     also against the scripts' closed forms), then every probe sweep
-     once (python -m sycl_ray_tracing_tpu_torch.probes: the union walk
-     at 8 / 16 / 32 rays a block, the synthetic round's exact, SASS and
-     time checks among them), with the probe kernels' launch counters
-     reset just before.
+     also against the scripts' closed forms, and smoke_gather and every
+     mosaic_probe feature on seeded random inputs where the lanes' order
+     and an early stop show; rows 10-12 split into (a) events a call,
+     (b) the host's launch path a call and its parts, (c) device time
+     a launch, beside the empty kernel's and its ladder), then every
+     probe sweep once (python -m sycl_ray_tracing_tpu_torch.probes: the
+     union walk at 8 / 16 / 32 rays a block, the synthetic round's exact,
+     SASS and time checks, the feature smokes' split among them), with
+     the probe kernels' launch counters reset just before: every probe
+     kernel, the empty one and its ladder must launch.
   6. The 870k-triangle frame, whose main passes take the supercluster-
      prefiltered candidate build (K2 above 2*maxs*64 clusters): the scene
      (K2, K1, the SAH build's wall time, the tables' bytes); on the
@@ -719,20 +724,9 @@ def host_path(lt, launch, tris, card):
     wrapper without the checks (allocation, ctypes launch, counter).  No
     synchronise between calls: the card runs each launch faster than the
     host issues the next."""
-    import torch
+    from sycl_ray_tracing_tpu_torch.probes.common import host_us as us
 
     cand, ctn, rays = launch
-
-    def us(fn, n=200):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        t = (time.perf_counter() - t0) / n * 1e6
-        torch.cuda.synchronize()
-        return t
-
     total = us(lambda: lt.list_tiles(cand, ctn, rays, tris))
     checks = us(lambda: lt._check_tile_args(cand, rays, tris, cand.shape[0],
                                             ctn))
@@ -2236,7 +2230,14 @@ def main() -> int:
                     "rounds, 1 sub-block")
         kernels[-1]["staged_bytes"] = micro_round.staged_bytes(cand_r)
 
-        # the feature smoke kernels on the scripts' own inputs
+        # the feature smoke kernels on seeded random inputs where the
+        # lanes' order and an early stop of the while loop show, then on
+        # the scripts' own inputs
+        feature_smoke.hold_random(dev)
+        log("phase 5 smoke_gather (normal table and rays, a row named "
+            "twice) and every mosaic_probe feature (ns 7, cand in {-1, 0, "
+            "1}, normal x with column 2 at -5) on seeded random inputs: "
+            "bit-identical=True")
         g = feature_smoke.gather_inputs(dev)
         args = (g["cid"], g["table"], g["rays"])
         err = hold("smoke_gather", lambda: pk.smoke_gather(*args),
@@ -2271,6 +2272,19 @@ def main() -> int:
                     lambda: pk.mosaic_probe(*args, "all", impl="plain"),
                     bounds.mosaic_probe_work(*args, "all"), err,
                     "feature all, x [8, 128]")
+        # rows 10-12 split into the host's launch path and device time,
+        # beside the empty kernel's (the launch floor) and its ladder
+        split = feature_smoke.splits(dev)
+        floor = split["null_launch"]
+        rungs = feature_smoke.ladder(dev)
+        log(f"phase 5 {feature_smoke.floor_note(floor, rungs)} ({card})")
+        for k in kernels:
+            if k["name"] in split:
+                sk = split[k["name"]]
+                log(f"phase 5 {k['name']} split: "
+                    f"{feature_smoke.split_note(sk, floor)} ({card})")
+                k.update(host_us=sk["host_us"], device_ms=sk["device_ms"],
+                         launch_floor_ms=floor["device_ms"])
         t5h = time.perf_counter()
 
         # every probe sweep once, the probe kernels' counters reset first

@@ -437,33 +437,52 @@ int round_probe_info(int subblocks, int* info) {
 //
 // Replaces scratch/pallas_smoke.py:30-46: grid step b gathers table row
 // cid[b] (a scalar-prefetched index) and writes, for each of its 64 rays,
-// rays[:, 0] * sum over lanes of that row, plus 4 (a 4-trip loop whose
-// pl.when branch does nothing).  One CUDA block per b, a thread per ray;
-// the block loads its own index (Hopper has no scalar prefetch).  Bound:
-// the launch (a few KB).
+// rays[:, 0] times the sum over lanes of that row, plus 4 (a 4-trip loop
+// whose pl.when branch does nothing).  The lanes are added in order, as
+// the plain version adds them: each ray's 128 products form one chain of
+// dependent FP32 adds.  That chain is the semantics; a tree is not.
+//
+// What bounds it on an H100: the launch (a few KB and ~2,000 operations
+// a block).  The first version staged the row by scalar loads behind a
+// second read of cid[b] and read cid[0..3] for the no-op loop.  The
+// design: a block of 64 threads (a thread a ray) a step b.  A thread
+// issues its ray's column-0 load first (a 32-byte stride: the script's
+// layout); 32 threads read cid[b] once and stage the 512-byte row by one
+// 16-byte load each; behind one __syncthreads every thread reads the row
+// back 16 bytes at a time (broadcasts) into its 128-step chain.  The loop
+// count is the exact 4.0f, so the no-op loop reads nothing.
+//
+// On the card this takes 1.8-1.9x the empty kernel's device time
+// (PERF.md): the ladder's two dependent reads and its 128-add chain,
+// which the semantics keep, add up to 1.7x.  Row loads straight from
+// global memory into the chain, or into registers first, and one block
+// of 512 threads measured slower.
 constexpr int kRt = 64;
+constexpr int kRowPieces = kLanes / 4;  // 16-byte pieces of a table row
+constexpr float kSmokeTrips = 4.0f;
 
 __global__ void __launch_bounds__(kRt)
 smoke_gather_kernel(const int32_t* __restrict__ cid,
                     const float* __restrict__ table,
                     const float* __restrict__ rays, float* __restrict__ out) {
-  __shared__ float row[kLanes];
+  __shared__ float4 row[kRowPieces];
   const int b = blockIdx.x;
   const int j = threadIdx.x;
-  for (int l = j; l < kLanes; l += kRt)
-    row[l] = table[(size_t)cid[b] * kLanes + l];
-  __syncthreads();
   const float x = rays[((size_t)b * kRt + j) * 8];
+  if (j < kRowPieces)
+    row[j] = reinterpret_cast<const float4*>(
+        table + (size_t)cid[b] * kLanes)[j];
+  __syncthreads();
   float acc = 0.0f;
-  for (int l = 0; l < kLanes; ++l) acc = acc + x * row[l];
-  float n = 0.0f;
-  for (int i = 0; i < 4; ++i) {
-    if (cid[i] >= 0) {
-      // the TPU kernel's pl.when(c >= 0) branch: a no-op
-    }
-    n = n + 1.0f;
+#pragma unroll
+  for (int k = 0; k < kRowPieces; ++k) {
+    const float4 v = row[k];
+    acc = acc + x * v.x;
+    acc = acc + x * v.y;
+    acc = acc + x * v.z;
+    acc = acc + x * v.w;
   }
-  out[(size_t)b * kRt + j] = acc + n;
+  out[(size_t)b * kRt + j] = acc + kSmokeTrips;
 }
 
 // ---------------------------------------------------------------------
@@ -474,8 +493,13 @@ smoke_gather_kernel(const int32_t* __restrict__ cid,
 // c.  The TPU kernel ranks the set columns with a triangular matmul
 // (cumsum has no Mosaic lowering) and a per-step count; here a thread per
 // column, a warp scan of the column flags gives each set column its rank,
-// which indexes a shared-memory list of set columns.  One block.  Bound:
-// the launch.
+// which indexes a shared-memory list of set columns.  One block.
+//
+// What bounds it on an H100: not the launch alone.  It takes 4.2x the
+// empty kernel's device time (PERF.md): the loop over the set columns (40
+// of them on the probe's mask) reads one table entry from global memory
+// an iteration into the sum.  Not redesigned yet: loading every selected
+// entry before the ordered adds would leave about one read on the path.
 __global__ void __launch_bounds__(kLanes)
 smoke_rank_select_kernel(const float* __restrict__ mask,
                          const float* __restrict__ table,
@@ -509,58 +533,138 @@ smoke_rank_select_kernel(const float* __restrict__ mask,
 //
 // Replaces scratch/probe_mosaic.py:19-52, which probed one Mosaic feature
 // at a time over x [8, 128]: a data-dependent while loop (ns[0] rounds,
-// stopping early when the round's max is <= -1), a dynamic column
-// x[:, r], a scalar extracted from a computed vector as a predicate, and
-// a per-row predicate read from cand at a dynamic round.  The feature is
-// a bit mask here (all five run on one build).  One block, a thread per
-// column holding its 8 rows in registers.  Bound: the launch.
+// stopping after the first round whose column max is <= -1), a dynamic
+// column x[:, r], a scalar extracted from a computed vector as a
+// predicate, and a per-row predicate read from cand at a dynamic round.
+//
+// What bounds it on an H100: the launch (8 KB in, 4 KB out, a few
+// thousand FP32 operations; the rounds are serial by their semantics).
+// The first version (a thread a column holding 8 rows, x staged by scalar
+// loads, the feature tested at run time) read ns[0] and, with `when`, 8
+// words of cand from global memory in every round, inside the round's
+// dependent chain.  The design leaves one read of global memory on the
+// path and only shared-memory broadcasts in the round loop:
+//  1. A thread per 4 lanes of a row (the row is the warp).  Every read of
+//     global memory is issued at once: ns[0]; the thread's 16-byte pieces
+//     of x (its acc) and of cand, staged into shared memory where ds or
+//     `when` read them by round; and, for thread r < 128 where while or
+//     extract need it, column r of x.
+//  2. Thread r packs what round r decides for the whole block into one
+//     word: the column's 8-value max > -1 (the while loop goes on) and
+//     the extract predicate col[3] + 1 > 0.  One __syncthreads publishes
+//     the words and the staged rows.
+//  3. Each round reads its word, the row's `when` entry and (with ds) its
+//     column value as broadcasts; the while loop breaks on its word.  The
+//     output leaves by one 16-byte store a thread.
+// The feature is a template argument, so each of the five kernels holds
+// only its own code (one build; the C entry dispatches on the bit mask).
+// The per-element arithmetic is the plain version's, in its order.
+//
+// On the card this takes 1.6x the empty kernel's device time for `all`
+// (PERF.md): the ladder's one read alone is 1.2x; the rest is the
+// decisions before the barrier and each round's branch on its word.  A
+// ballot that finds the stopping round before the loop, decisions read
+// inline from shared memory, branch-free rounds, loads hoisted four rounds
+// ahead, and the feature as a run-time argument all measured slower.
 enum Feature { kWhile = 1, kDs = 2, kExtract = 4, kWhen = 8 };
+constexpr int kMosaicRows = 8;
+constexpr int kMosaicThreads = kMosaicRows * kLanes / 4;
+// a round's word: the while loop goes on; extract adds
+constexpr unsigned kGoOn = 1u, kExtractAdds = 2u;
 
-__global__ void __launch_bounds__(kLanes)
+template <int F>
+__global__ void __launch_bounds__(kMosaicThreads)
 mosaic_probe_kernel(const int32_t* __restrict__ ns,
                     const int32_t* __restrict__ cand,
-                    const float* __restrict__ x, float* __restrict__ out,
-                    int feat) {
-  __shared__ float sx[8][kLanes];
-  const int lane = threadIdx.x;
-  float acc[8], o[8];
-  for (int i = 0; i < 8; ++i) {
-    sx[i][lane] = x[i * kLanes + lane];
-    acc[i] = sx[i][lane];
-    o[i] = 0.0f;
+                    const float* __restrict__ x, float* __restrict__ out) {
+  constexpr bool kW = F & kWhile, kD = F & kDs, kE = F & kExtract,
+                 kN = F & kWhen;
+  __shared__ __align__(16) float sx[kMosaicRows][kLanes];
+  __shared__ __align__(16) int32_t sc[kMosaicRows][kLanes];
+  __shared__ unsigned word[kLanes];
+  const int t = threadIdx.x;
+  const int i = t / 32;  // the thread's row; its lanes 4 (t % 32) + 0..3
+  const int n = kW ? ns[0] : 4;
+  const float4 xv = reinterpret_cast<const float4*>(x)[t];
+  if (kD) reinterpret_cast<float4*>(&sx[0][0])[t] = xv;
+  if (kN)
+    reinterpret_cast<int4*>(&sc[0][0])[t] =
+        reinterpret_cast<const int4*>(cand)[t];
+  if ((kW || kE) && t < kLanes) {  // round t's decisions
+    float col[kMosaicRows];
+#pragma unroll
+    for (int k = 0; k < kMosaicRows; ++k)
+      col[k] = kD ? x[k * kLanes + t] : x[k * kLanes] + (float)t;
+    float mx = col[0];
+#pragma unroll
+    for (int k = 1; k < kMosaicRows; ++k) mx = fmaxf(mx, col[k]);
+    word[t] = (mx > -1.0f ? kGoOn : 0u) |
+              (col[3] + 1.0f > 0.0f ? kExtractAdds : 0u);
   }
   __syncthreads();
-  auto round_body = [&](int r) -> bool {
-    float col[8];
-    for (int i = 0; i < 8; ++i)
-      col[i] = (feat & kDs) ? sx[i][r] : sx[i][0] + (float)r;
-    if (feat & kWhen) {
-      for (int i = 0; i < 8; ++i)
-        if (cand[i * kLanes + r] > 0) acc[i] = acc[i] * 1.0001f;
+  // without while, 4 rounds; with it, round 0 if ns[0] > 0, then on while
+  // r < ns[0] and the last round's max was > -1
+  const int rounds = kW ? min(n, kLanes) : 4;
+  const float x0 = __shfl_sync(0xffffffffu, xv.x, 0);  // x[i][0]
+  float acc[4] = {xv.x, xv.y, xv.z, xv.w};
+  float o[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+  for (int r = 0; r < rounds; ++r) {
+    const unsigned w = kW || kE ? word[r] : 0u;
+    const float col = kD ? sx[i][r] : x0 + (float)r;
+    if (kN && sc[i][r] > 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] = acc[j] * 1.0001f;
     }
-    if (feat & kExtract) {
-      const float s = col[3] + 1.0f;
-      if (s > 0.0f)
-        for (int i = 0; i < 8; ++i) o[i] = o[i] + acc[i];
+    if (kE) {
+      if (w & kExtractAdds) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[j] = o[j] + acc[j];
+      }
     } else {
-      for (int i = 0; i < 8; ++i) o[i] = o[i] + acc[i] + col[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[j] = o[j] + acc[j] + col;
     }
-    float mx = col[0];
-    for (int i = 1; i < 8; ++i) mx = fmaxf(mx, col[i]);
-    return mx > -1.0f;
-  };
-  if (feat & kWhile) {
-    int r = 0;
-    bool go = ns[0] > 0;
-    while (go) {
-      const bool ok = round_body(r);
-      r += 1;
-      go = r < ns[0] && ok;
-    }
-  } else {
-    for (int r = 0; r < 4; ++r) round_body(r);
+    if (kW && !(w & kGoOn)) break;
   }
-  for (int i = 0; i < 8; ++i) out[i * kLanes + lane] = o[i];
+  reinterpret_cast<float4*>(out)[t] = make_float4(o[0], o[1], o[2], o[3]);
+}
+
+template <int F>
+int launch_mosaic_probe(const void* ns, const void* cand, const void* x,
+                        void* out, cudaStream_t s) {
+  mosaic_probe_kernel<F><<<1, kMosaicThreads, 0, s>>>(
+      (const int32_t*)ns, (const int32_t*)cand, (const float*)x,
+      (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// null_launch and the floor's ladder
+//
+// Measurement references, not ports of TPU kernels, at the smallest
+// probe launch (one block of 128 threads).  The empty kernel's device
+// time (the profiler's) is the card's floor for one launch; its wrapper's
+// host time is the floor of the port's ctypes launch path.  The ladder
+// adds, rung by rung, what the smoke kernels cannot leave out: 1, one
+// read of global memory (and a store); 2, two dependent reads (an index,
+// then the row it names: smoke_gather's gather); 3, one read, then a
+// chain of 128 dependent adds (smoke_gather's lane order).
+__global__ void __launch_bounds__(kLanes) null_launch_kernel() {}
+
+template <int R>
+__global__ void __launch_bounds__(kLanes)
+floor_rung_kernel(const int32_t* __restrict__ idx,
+                  const float* __restrict__ src, float* __restrict__ out) {
+  const int t = threadIdx.x;
+  float v = R == 2 ? src[(size_t)idx[0] * kLanes + t] : src[t];
+  if (R == 3) {
+    const float x = v;
+    v = 0.0f;
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) v = v + x * (float)l;
+  }
+  out[t] = v;
 }
 
 }  // namespace
@@ -648,9 +752,11 @@ int srt_round_probe_info(int variant, int subblocks, int* info) {
   }
 }
 
+// table 16-byte aligned.
 int srt_smoke_gather(const void* cid, const void* table, const void* rays,
                      void* out, int nb, void* stream) {
-  if (nb < 4) return (int)cudaErrorInvalidValue;  // the loop reads cid[0:4]
+  // the TPU kernel's loop reads cid[0:4]
+  if (nb < 4) return (int)cudaErrorInvalidValue;
   smoke_gather_kernel<<<nb, kRt, 0, (cudaStream_t)stream>>>(
       (const int32_t*)cid, (const float*)table, (const float*)rays,
       (float*)out);
@@ -664,12 +770,56 @@ int srt_smoke_rank_select(const void* mask, const void* table, void* out,
   return (int)cudaGetLastError();
 }
 
-// feat: bit mask of 1 while, 2 ds, 4 extract, 8 when.
+// feat: bit mask of 1 while, 2 ds, 4 extract, 8 when (one of the five
+// features probe_mosaic.py names: while, ds, extract, when, all); cand,
+// x and the output 16-byte aligned.
 int srt_mosaic_probe(const void* ns, const void* cand, const void* x,
                      void* out, int feat, void* stream) {
-  mosaic_probe_kernel<<<1, kLanes, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)ns, (const int32_t*)cand, (const float*)x, (float*)out,
-      feat);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (feat) {
+    case kWhile:
+      return launch_mosaic_probe<kWhile>(ns, cand, x, out, s);
+    case kDs:
+      return launch_mosaic_probe<kDs>(ns, cand, x, out, s);
+    case kExtract:
+      return launch_mosaic_probe<kExtract>(ns, cand, x, out, s);
+    case kWhen:
+      return launch_mosaic_probe<kWhen>(ns, cand, x, out, s);
+    case kWhile | kDs | kExtract | kWhen:
+      return launch_mosaic_probe<kWhile | kDs | kExtract | kWhen>(
+          ns, cand, x, out, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The empty kernel at <<<1, 128>>>.
+int srt_null_launch(void* stream) {
+  null_launch_kernel<<<1, kLanes, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+// Rung 1-3 of the floor's ladder at <<<1, 128>>>: idx[0] names a row of
+// src [rows, 128]; out [128].
+int srt_floor_rung(int rung, const void* idx, const void* src, void* out,
+                   void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int32_t* i = (const int32_t*)idx;
+  const float* v = (const float*)src;
+  float* o = (float*)out;
+  switch (rung) {
+    case 1:
+      floor_rung_kernel<1><<<1, kLanes, 0, s>>>(i, v, o);
+      break;
+    case 2:
+      floor_rung_kernel<2><<<1, kLanes, 0, s>>>(i, v, o);
+      break;
+    case 3:
+      floor_rung_kernel<3><<<1, kLanes, 0, s>>>(i, v, o);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

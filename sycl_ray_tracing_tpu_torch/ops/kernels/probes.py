@@ -15,6 +15,10 @@ Kernels (csrc/probes.cu, CUDA C++ for sm_90a, -fmad=false):
   * ``smoke_gather``, ``smoke_rank_select``, ``mosaic_probe``: the Pallas
     feature smoke kernels (pallas_smoke.py:67, pallas_smoke2.py:61,
     probe_mosaic.py:59).
+  * ``null_launch`` and ``floor_rung``: an empty kernel and the rungs
+    above it (one read of global memory, two dependent ones, one read and
+    128 dependent adds), measurement references for the launch floor (no
+    TPU kernel, no plain version).
 Each wrapper checks its arguments, sends CPU tensors to its plain torch
 version beside it, and launches the CUDA kernel for CUDA tensors (or
 raises).  ``impl="plain"`` forces the plain version, for comparisons
@@ -49,9 +53,13 @@ SMOKE_RT = 64
 SMOKE_TRIPS = 4
 # probe_mosaic.py: the features and their bits in the C entry point
 MOSAIC_FEATURES = {"while": 1, "ds": 2, "extract": 4, "when": 8, "all": 15}
+# the rungs of the launch floor's ladder above the empty kernel
+FLOOR_RUNGS = {1: "one read", 2: "two dependent reads",
+               3: "one read and 128 dependent adds"}
 
 LAUNCHES = {"list_tiles_min": 0, "round_probe": 0, "smoke_gather": 0,
-            "smoke_rank_select": 0, "mosaic_probe": 0}
+            "smoke_rank_select": 0, "mosaic_probe": 0, "null_launch": 0,
+            "floor_rung": 0}
 
 _lib = None
 
@@ -80,6 +88,8 @@ def load_cuda_library() -> ctypes.CDLL:
             ("srt_smoke_gather", [p] * 4 + [i, p]),
             ("srt_smoke_rank_select", [p] * 4),
             ("srt_mosaic_probe", [p] * 4 + [i, p]),
+            ("srt_null_launch", [p]),
+            ("srt_floor_rung", [i] + [p] * 4),
         ):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
@@ -259,11 +269,9 @@ def smoke_gather_plain(cid, table, rays):
     return (acc + n).reshape(-1, 1)
 
 
-def smoke_gather(cid, table, rays, impl=None, check_values=True):
-    """cid i32 [NB] (NB >= 4), table f32 [K, 1, 128], rays f32
-    [NB * 64, 8] -> f32 [NB * 64, 1] (pallas_smoke.py:30-46).
-    ``check_values=False`` skips the range check of cid, a host read (a
-    device sync): for timing the launch alone after a checked call."""
+def smoke_gather_args(cid, table, rays, impl=None, check_values=True):
+    """smoke_gather's argument checks; True where the plain version
+    runs."""
     nb = cid.shape[0] if cid.dim() == 1 else -1
     _check("cid", cid, torch.int32, (nb,))
     _check("table", table, torch.float32, (table.shape[0], 1, T_CLUSTER))
@@ -274,7 +282,20 @@ def smoke_gather(cid, table, rays, impl=None, check_values=True):
         if not bool(((cid >= 0) & (cid < table.shape[0])).all()):
             raise ValueError("cid must index rows of table")
     if _use_plain("smoke_gather", impl, cid, table, rays):
+        return True
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned (16-byte loads)")
+    return False
+
+
+def smoke_gather(cid, table, rays, impl=None, check_values=True):
+    """cid i32 [NB] (NB >= 4), table f32 [K, 1, 128], rays f32
+    [NB * 64, 8] -> f32 [NB * 64, 1] (pallas_smoke.py:30-46).
+    ``check_values=False`` skips the range check of cid, a host read (a
+    device sync): for timing the launch alone after a checked call."""
+    if smoke_gather_args(cid, table, rays, impl, check_values):
         return smoke_gather_plain(cid, table, rays)
+    nb = cid.shape[0]
     out = torch.empty((nb * SMOKE_RT, 1), dtype=torch.float32,
                       device=cid.device)
     _call("smoke_gather", cid.device, cid.data_ptr(), table.data_ptr(),
@@ -294,12 +315,18 @@ def smoke_rank_select_plain(mask, table):
     return acc
 
 
+def smoke_rank_select_args(mask, table, impl=None):
+    """smoke_rank_select's argument checks; True where the plain version
+    runs."""
+    _check("mask", mask, torch.float32, (8, T_CLUSTER))
+    _check("table", table, torch.float32, (T_CLUSTER, 1, T_CLUSTER))
+    return _use_plain("smoke_rank_select", impl, mask, table)
+
+
 def smoke_rank_select(mask, table, impl=None):
     """mask f32 [8, 128], table f32 [128, 1, 128] -> f32 [1, 128]
     (pallas_smoke2.py:24-51)."""
-    _check("mask", mask, torch.float32, (8, T_CLUSTER))
-    _check("table", table, torch.float32, (T_CLUSTER, 1, T_CLUSTER))
-    if _use_plain("smoke_rank_select", impl, mask, table):
+    if smoke_rank_select_args(mask, table, impl):
         return smoke_rank_select_plain(mask, table)
     out = torch.empty((1, T_CLUSTER), dtype=torch.float32, device=mask.device)
     _call("smoke_rank_select", mask.device, mask.data_ptr(), table.data_ptr(),
@@ -340,12 +367,10 @@ def mosaic_probe_plain(ns, cand, x, feature: str):
     return o
 
 
-def mosaic_probe(ns, cand, x, feature: str, impl=None, check_values=True):
-    """ns i32 [1] (ns[0] <= 128), cand i32 [8, 128], x f32 [8, 128] ->
-    f32 [8, 128], for one probe_mosaic.py feature: while, ds, extract,
-    when or all.  ``check_values=False`` skips the check of ns[0], a host
-    read (a device sync): for timing the launch alone after a checked
-    call."""
+def mosaic_probe_args(ns, cand, x, feature: str, impl=None,
+                      check_values=True):
+    """mosaic_probe's argument checks; True where the plain version
+    runs."""
     if feature not in MOSAIC_FEATURES:
         raise ValueError(f"feature must be one of {tuple(MOSAIC_FEATURES)}")
     _check("ns", ns, torch.int32, (1,))
@@ -354,8 +379,50 @@ def mosaic_probe(ns, cand, x, feature: str, impl=None, check_values=True):
     if check_values and int(ns[0]) > T_CLUSTER:
         raise ValueError("ns[0] counts rounds over the 128 columns")
     if _use_plain("mosaic_probe", impl, ns, cand, x):
+        return True
+    if cand.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError("cand and x must be 16-byte aligned (16-byte "
+                         "loads)")
+    return False
+
+
+def mosaic_probe(ns, cand, x, feature: str, impl=None, check_values=True):
+    """ns i32 [1] (ns[0] <= 128), cand i32 [8, 128], x f32 [8, 128] ->
+    f32 [8, 128], for one probe_mosaic.py feature: while, ds, extract,
+    when or all.  ``check_values=False`` skips the check of ns[0], a host
+    read (a device sync): for timing the launch alone after a checked
+    call."""
+    if mosaic_probe_args(ns, cand, x, feature, impl, check_values):
         return mosaic_probe_plain(ns, cand, x, feature)
     out = torch.empty_like(x)
     _call("mosaic_probe", ns.device, ns.data_ptr(), cand.data_ptr(),
           x.data_ptr(), out.data_ptr(), MOSAIC_FEATURES[feature])
     return out
+
+
+# ---- null_launch and the floor's ladder -------------------------------
+
+def null_launch(device):
+    """Launch the empty kernel once on the device's current stream: the
+    measurement reference for one launch's floor.  It computes nothing, so
+    it has no plain version: a device that is not CUDA raises."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("null_launch: the empty kernel needs a CUDA device")
+    _call("null_launch", device)
+
+
+def floor_rung(rung: int, idx, src, out):
+    """Launch rung ``rung`` of the floor's ladder (FLOOR_RUNGS) once: idx
+    i32 [1] names a row of src f32 [rows, 128]; writes out f32 [128].  A
+    measurement reference like null_launch: no plain version, and tensors
+    off a CUDA device raise."""
+    if rung not in FLOOR_RUNGS:
+        raise ValueError(f"rung must be one of {tuple(FLOOR_RUNGS)}")
+    _check("idx", idx, torch.int32, (1,))
+    _check("src", src, torch.float32, (src.shape[0], T_CLUSTER))
+    _check("out", out, torch.float32, (T_CLUSTER,))
+    if not (idx.is_cuda and src.is_cuda and out.is_cuda):
+        raise ValueError("floor_rung: the ladder needs CUDA tensors")
+    _call("floor_rung", src.device, rung, idx.data_ptr(), src.data_ptr(),
+          out.data_ptr())

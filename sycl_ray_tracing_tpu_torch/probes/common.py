@@ -1,4 +1,4 @@
-"""What the probes share: the card line, CUDA-event timing, and the
+"""What the probes share: the card line, CUDA-event and host timing, and the
 workloads the TPU probe scripts built (a surface wavefront on the dragon
 stand-in, packed rays, lists with the dummy id).
 
@@ -8,6 +8,7 @@ The probes measure the card only: ``require_cuda`` raises without one.
 from __future__ import annotations
 
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -48,6 +49,21 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds per call of ``fn`` over ``n`` calls after one
+    warm-up call, by the host clock.  No synchronise between calls: where
+    the card runs each launch faster than the host issues the next, this
+    is the host's launch path."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return t
 
 
 def surface_wavefront(triangles: np.ndarray, n: int, device,

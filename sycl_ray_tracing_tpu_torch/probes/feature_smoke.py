@@ -1,7 +1,16 @@
 """Feature smoke probes on the card (counterparts of scratch/pallas_smoke.py,
 scratch/pallas_smoke2.py and scratch/probe_mosaic.py): the primitives the
 list tracer's kernels needed, each run on the scripts' own inputs and
-checked against the scripts' closed forms where they had one.
+checked against the scripts' closed forms where they had one, and held bit
+for bit against its plain version on seeded random inputs where the order
+of the lanes' sum and an early loop stop show.
+
+Each kernel's wrapper call is split three ways beside an empty kernel's
+(``pk.null_launch``): (a) CUDA events around queued calls, (b) the host's
+microseconds a call with its parts (argument checks, output allocation,
+the ctypes launch with the stream lookup), (c) the kernel's device time a
+launch by the profiler.  The empty kernel's (c) is the card's floor for
+one launch, its (b) the floor of the port's ctypes launch path.
 
     python -m sycl_ray_tracing_tpu_torch.probes feature_smoke
 """
@@ -17,8 +26,10 @@ from sycl_ray_tracing_tpu_torch.probes.common import (
     SEED,
     bound_note,
     cuda_ms,
+    host_us,
     plain_line,
 )
+from sycl_ray_tracing_tpu_torch.probes.frame import kernel_ms
 
 NB = 8
 
@@ -31,6 +42,19 @@ def gather_inputs(device) -> dict:
     rays = torch.ones((NB * pk.SMOKE_RT, 8), dtype=torch.float32,
                       device=device)
     return dict(cid=cid.contiguous(), table=table, rays=rays)
+
+
+def gather_random_inputs(device, seed: int = SEED) -> dict:
+    """Inputs whose sums change with the order of the lanes: a normal
+    table and normal rays, and ids that name one row twice."""
+    rng = np.random.default_rng(seed)
+    cid = rng.permutation(NB).astype(np.int32)
+    cid[-1] = cid[0]
+    table = rng.normal(size=(NB, 1, 128)).astype(np.float32)
+    rays = rng.normal(size=(NB * pk.SMOKE_RT, 8)).astype(np.float32)
+    return dict(cid=torch.as_tensor(cid, device=device),
+                table=torch.as_tensor(table, device=device),
+                rays=torch.as_tensor(rays, device=device))
 
 
 def gather_want(w: dict):
@@ -63,6 +87,126 @@ def mosaic_inputs(device) -> dict:
         cand=torch.ones((8, 128), dtype=torch.int32, device=device),
         x=torch.arange(8 * 128, dtype=torch.float32,
                        device=device).reshape(8, 128))
+
+
+def mosaic_random_inputs(device, seed: int) -> dict:
+    """A random per-row predicate (cand in {-1, 0, 1}), normal x with
+    column 2 at -5 (with ds, its max <= -1 stops the while loop after 3
+    of ns 7 rounds)."""
+    rng = np.random.default_rng(seed)
+    cand = rng.integers(-1, 2, (8, 128)).astype(np.int32)
+    x = rng.normal(size=(8, 128)).astype(np.float32)
+    x[:, 2] = -5.0
+    return dict(ns=torch.tensor([7], dtype=torch.int32, device=device),
+                cand=torch.as_tensor(cand, device=device),
+                x=torch.as_tensor(x, device=device))
+
+
+def launch_split(call, checks, alloc, launch, kernel: str,
+                 reps: int = 20) -> dict:
+    """Where a wrapper call's time goes: ``events_ms`` (a), CUDA events
+    around ``reps`` queued calls; ``host_us`` (b), host microseconds a
+    call, and its parts ``checks_us`` (the argument checks and the
+    dispatch), ``alloc_us`` (the output's allocation) and ``launch_us``
+    (the stream lookup and the ctypes launch); ``device_ms`` (c), the
+    kernel's own time a launch by the profiler.  A part that is None
+    takes no time."""
+    return dict(events_ms=cuda_ms(call, reps), host_us=host_us(call),
+                checks_us=host_us(checks) if checks else 0.0,
+                alloc_us=host_us(alloc) if alloc else 0.0,
+                launch_us=host_us(launch),
+                device_ms=kernel_ms(call, kernel, reps))
+
+
+def ladder(device, reps: int = 20) -> dict:
+    """Device ms a launch (profiler) of each rung of the floor's ladder
+    (pk.FLOOR_RUNGS), the index naming the last of NB rows."""
+    dev = torch.device(device)
+    idx = torch.full((1,), NB - 1, dtype=torch.int32, device=dev)
+    src = torch.ones((NB, 128), dtype=torch.float32, device=dev)
+    out = torch.empty((128,), dtype=torch.float32, device=dev)
+    return {r: kernel_ms(lambda: pk.floor_rung(r, idx, src, out),
+                         f"floor_rung_kernel<{r}>", reps)
+            for r in pk.FLOOR_RUNGS}
+
+
+def splits(device, reps: int = 20) -> dict:
+    """launch_split of the empty kernel (with ``stream_us``, the stream
+    lookup alone) and of each feature smoke kernel on the scripts' inputs
+    (mosaic_probe with every feature on), value checks off, as the events
+    column times them."""
+    dev = torch.device(device)
+    out = {"null_launch": launch_split(
+        lambda: pk.null_launch(dev), None, None,
+        lambda: pk._call("null_launch", dev), "null_launch_kernel", reps)}
+    out["null_launch"]["stream_us"] = host_us(
+        lambda: torch.cuda.current_stream(dev).cuda_stream)
+
+    cid, table, rays = gather_inputs(dev).values()
+    o = torch.empty((cid.shape[0] * pk.SMOKE_RT, 1), dtype=torch.float32,
+                    device=dev)
+    out["smoke_gather"] = launch_split(
+        lambda: pk.smoke_gather(cid, table, rays, check_values=False),
+        lambda: pk.smoke_gather_args(cid, table, rays, check_values=False),
+        lambda: torch.empty(o.shape, dtype=torch.float32, device=cid.device),
+        lambda: pk._call("smoke_gather", cid.device, cid.data_ptr(),
+                         table.data_ptr(), rays.data_ptr(), o.data_ptr(),
+                         cid.shape[0]),
+        "smoke_gather_kernel", reps)
+
+    mask, table = rank_select_inputs(dev).values()
+    o = torch.empty((1, 128), dtype=torch.float32, device=dev)
+    out["smoke_rank_select"] = launch_split(
+        lambda: pk.smoke_rank_select(mask, table),
+        lambda: pk.smoke_rank_select_args(mask, table),
+        lambda: torch.empty(o.shape, dtype=torch.float32,
+                            device=mask.device),
+        lambda: pk._call("smoke_rank_select", mask.device, mask.data_ptr(),
+                         table.data_ptr(), o.data_ptr()),
+        "smoke_rank_select_kernel", reps)
+
+    ns, cand, x = mosaic_inputs(dev).values()
+    o = torch.empty_like(x)
+    out["mosaic_probe"] = launch_split(
+        lambda: pk.mosaic_probe(ns, cand, x, "all", check_values=False),
+        lambda: pk.mosaic_probe_args(ns, cand, x, "all",
+                                     check_values=False),
+        lambda: torch.empty_like(x),
+        lambda: pk._call("mosaic_probe", ns.device, ns.data_ptr(),
+                         cand.data_ptr(), x.data_ptr(), o.data_ptr(),
+                         pk.MOSAIC_FEATURES["all"]),
+        "mosaic_probe_kernel", reps)
+    return out
+
+
+def split_note(s: dict, floor: dict) -> str:
+    """One line of launch_split against the empty kernel's."""
+    return (f"(a) {s['events_ms']:.4f} ms a call by events; (b) host "
+            f"{s['host_us']:.1f} us a call: checks {s['checks_us']:.1f}, "
+            f"allocation {s['alloc_us']:.1f}, stream lookup + ctypes launch "
+            f"{s['launch_us']:.1f}; (c) device {s['device_ms'] * 1e3:.2f} "
+            f"us a launch by the profiler, "
+            f"{s['device_ms'] / floor['device_ms']:.2f}x the empty "
+            "kernel's")
+
+
+def hold_random(device):
+    """smoke_gather and mosaic_probe (every feature, each on the seed the
+    CPU tests use) against their plain versions on the random inputs, bit
+    for bit; raises where they differ."""
+    w = gather_random_inputs(device)
+    args = (w["cid"], w["table"], w["rays"])
+    if not torch.equal(pk.smoke_gather(*args),
+                       pk.smoke_gather(*args, impl="plain")):
+        raise RuntimeError("smoke_gather differs from its plain version on "
+                           "the random inputs")
+    for feat in pk.MOSAIC_FEATURES:
+        w = mosaic_random_inputs(device, len(feat))
+        args = (w["ns"], w["cand"], w["x"])
+        if not torch.equal(pk.mosaic_probe(*args, feat),
+                           pk.mosaic_probe(*args, feat, impl="plain")):
+            raise RuntimeError(f"mosaic_probe {feat} differs from its plain "
+                               "version on the random inputs")
 
 
 def run(device, reps: int = 20):
@@ -110,3 +254,26 @@ def run(device, reps: int = 20):
     plain_line("mosaic_probe all", lambda: pk.mosaic_probe(
         *args, "all", impl="plain"))
 
+    hold_random(device)
+    print("smoke_gather and mosaic_probe (every feature) bit-identical to "
+          "their plain versions on the random inputs", flush=True)
+    split = splits(device, reps)
+    print(floor_note(split["null_launch"], ladder(device, reps)),
+          flush=True)
+    for name in ("smoke_gather", "smoke_rank_select", "mosaic_probe"):
+        print(f"{name} split: {split_note(split[name], split['null_launch'])}",
+              flush=True)
+    return split
+
+
+def floor_note(floor: dict, rungs: dict) -> str:
+    """The empty kernel's split and the ladder's rungs, in one line."""
+    steps = "; ".join(f"{pk.FLOOR_RUNGS[r]} {ms * 1e3:.2f}"
+                      for r, ms in rungs.items())
+    return (f"empty kernel: (a) {floor['events_ms']:.4f} ms a call by "
+            f"events; (b) host {floor['host_us']:.1f} us a call, of which "
+            f"the stream lookup + ctypes launch {floor['launch_us']:.1f} "
+            f"(the stream lookup alone {floor['stream_us']:.1f}); (c) device "
+            f"{floor['device_ms'] * 1e3:.2f} us a launch by the profiler: "
+            f"the launch floor; the ladder, device us a launch by the "
+            f"profiler: {steps}")

@@ -113,9 +113,9 @@ def test_round_probe_subblocks_match_micro_super(subblocks):
 
 # ---- smoke kernels ----------------------------------------------------
 
-def test_smoke_gather_matches_pallas_smoke():
+def _pallas_smoke_gather(w) -> np.ndarray:
+    """pallas_smoke.py's kernel on the inputs ``w``, in interpret mode."""
     ns = scratch_defs("pallas_smoke.py", ["kernel"], RT=64, T=T)
-    w = feature_smoke.gather_inputs("cpu")
     nb = w["cid"].shape[0]
     grid_spec = pltpu.PrefetchScalarGridSpec(
         num_scalar_prefetch=1,
@@ -133,10 +133,62 @@ def test_smoke_gather_matches_pallas_smoke():
         ns["kernel"],
         out_shape=jax.ShapeDtypeStruct((nb * 64, 1), jnp.float32),
         grid_spec=grid_spec, interpret=True)
-    want = np.asarray(f(*(w[k].numpy() for k in ("cid", "table", "rays"))))
+    return np.asarray(f(*(w[k].numpy() for k in ("cid", "table", "rays"))))
+
+
+def test_smoke_gather_matches_pallas_smoke():
+    w = feature_smoke.gather_inputs("cpu")
+    want = _pallas_smoke_gather(w)
     got = PK.smoke_gather(w["cid"], w["table"], w["rays"])
     np.testing.assert_array_equal(got.numpy(), want)
     assert torch.equal(got, feature_smoke.gather_want(w))
+
+
+def _lane_products(w):
+    """Each ray's 128 products x * row[l], float32 [NB * 64, 128]."""
+    nb = w["cid"].shape[0]
+    x = w["rays"][:, 0].numpy().reshape(nb, PK.SMOKE_RT, 1)
+    row = w["table"].numpy()[w["cid"].numpy(), 0][:, None, :]
+    return (x * row).reshape(nb * PK.SMOKE_RT, T)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_smoke_gather_random_matches_pallas_smoke(seed):
+    """On normal inputs the Pallas kernel's jnp.sum adds the lanes in
+    another order than the plain version (lane order), so the two differ
+    by rounding only: within 2 (n - 1) u sum |x row[l]| for n = 128 lanes
+    (the forward error bound of a float32 sum in any order, u = 2^-24,
+    once for each order) plus one rounding each of the final + 4."""
+    w = feature_smoke.gather_random_inputs("cpu", seed)
+    want = _pallas_smoke_gather(w)
+    got = PK.smoke_gather(w["cid"], w["table"], w["rays"]).numpy()
+    u = 2.0 ** -24
+    mag = np.abs(_lane_products(w)).sum(axis=1, keepdims=True)
+    tol = 2 * (T - 1) * u * mag + 2 * u * np.abs(want)
+    assert (np.abs(got - want) <= tol).all()
+
+
+@pytest.mark.parametrize("inputs", ["script", "random"])
+def test_smoke_gather_plain_adds_lanes_in_order(inputs):
+    """smoke_gather_plain equals a float32 numpy loop that adds the lanes
+    in order, bit for bit.  On the random inputs (the ones chip_smoke holds
+    the kernel to) the reversed order gives other bits: a kernel that
+    reordered the sum would fail that hold."""
+    w = (feature_smoke.gather_inputs("cpu") if inputs == "script"
+         else feature_smoke.gather_random_inputs("cpu"))
+    prods = _lane_products(w)
+    acc = np.zeros(prods.shape[0], np.float32)
+    for lane in range(T):
+        acc = acc + prods[:, lane]
+    want = (acc + np.float32(PK.SMOKE_TRIPS))[:, None]
+    got = PK.smoke_gather_plain(w["cid"], w["table"], w["rays"]).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    rev = np.zeros(prods.shape[0], np.float32)
+    for lane in reversed(range(T)):
+        rev = rev + prods[:, lane]
+    differs = ((rev + np.float32(PK.SMOKE_TRIPS))[:, None] != got).any()
+    assert differs == (inputs == "random")
 
 
 def test_smoke_rank_select_matches_pallas_smoke2():
@@ -175,13 +227,9 @@ def test_mosaic_probe_matches_probe_mosaic(feature):
         interpret=True)
     # the script's inputs, then a random predicate and a loop that stops
     # early (a column max <= -1 ends the while loop)
-    rng = np.random.default_rng(len(feature))
-    cand2 = rng.integers(-1, 2, (8, T)).astype(np.int32)
-    x2 = rng.normal(size=(8, T)).astype(np.float32)
-    x2[:, 2] = -5.0
-    for ns_, cand, x in ((w["ns"].numpy(), w["cand"].numpy(),
-                          w["x"].numpy()),
-                         (np.array([7], np.int32), cand2, x2)):
+    w2 = feature_smoke.mosaic_random_inputs("cpu", len(feature))
+    for ns_, cand, x in ((w[k].numpy() for k in ("ns", "cand", "x")),
+                         (w2[k].numpy() for k in ("ns", "cand", "x"))):
         want = np.asarray(f(ns_, cand, x))
         got = PK.mosaic_probe(torch.tensor(ns_), torch.tensor(cand),
                               torch.tensor(x), feature)
@@ -496,6 +544,57 @@ def test_probe_wrappers_dispatch_on_device(wavefront):
     mo = feature_smoke.mosaic_inputs("cpu")
     with pytest.raises(ValueError):
         PK.mosaic_probe(mo["ns"], mo["cand"], mo["x"], "loop")
+
+
+def test_launch_floor_references_need_cuda():
+    """The empty kernel and the ladder's rungs have no plain version: a
+    CPU device or CPU tensors raise, and nothing is counted."""
+    PK.reset_launch_counts()
+    with pytest.raises(ValueError):
+        PK.null_launch("cpu")
+    idx = torch.zeros(1, dtype=torch.int32)
+    src = torch.ones((2, T))
+    out = torch.empty(T)
+    for rung in PK.FLOOR_RUNGS:
+        with pytest.raises(ValueError):
+            PK.floor_rung(rung, idx, src, out)
+    with pytest.raises(ValueError):
+        PK.floor_rung(4, idx, src, out)
+    with pytest.raises(ValueError):
+        PK.floor_rung(1, idx, src, out[:-1])
+    assert set(PK.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("name", list(PK.LAUNCHES))
+def test_call_counts_launches_and_raises_on_errors(name, monkeypatch):
+    """_call passes its arguments and the device's current stream to
+    srt_<name>, counts one launch when it returns 0, and raises without
+    counting on a CUDA error code; the library is a stand-in here."""
+    calls = []
+
+    class Lib:
+        rc = 0
+
+        def __getattr__(self, attr):
+            def fn(*args):
+                calls.append((attr, args))
+                return Lib.rc
+            return fn
+
+    class Stream:
+        cuda_stream = 1234
+
+    monkeypatch.setattr(PK, "_lib", Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    PK.reset_launch_counts()
+    PK._call(name, "cuda", 7, 8)
+    assert calls == [(f"srt_{name}", (7, 8, 1234))]
+    assert PK.LAUNCHES[name] == 1
+    Lib.rc = 700
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        PK._call(name, "cuda", 7, 8)
+    assert PK.LAUNCHES[name] == 1
+    PK.reset_launch_counts()
 
 
 def test_bounds_count_live_work():

@@ -2231,12 +2231,10 @@ def main() -> int:
         kernels[-1]["staged_bytes"] = micro_round.staged_bytes(cand_r)
 
         # the feature smoke kernels on seeded random inputs where the
-        # lanes' order and an early stop of the while loop show, then on
-        # the scripts' own inputs
+        # order of the adds and an early stop of the while loop show, then
+        # on the scripts' own inputs
         feature_smoke.hold_random(dev)
-        log("phase 5 smoke_gather (normal table and rays, a row named "
-            "twice) and every mosaic_probe feature (ns 7, cand in {-1, 0, "
-            "1}, normal x with column 2 at -5) on seeded random inputs: "
+        log(f"phase 5 {feature_smoke.hold_random_note()}: "
             "bit-identical=True")
         g = feature_smoke.gather_inputs(dev)
         args = (g["cid"], g["table"], g["rays"])
@@ -2285,6 +2283,12 @@ def main() -> int:
                     f"{feature_smoke.split_note(sk, floor)} ({card})")
                 k.update(host_us=sk["host_us"], device_ms=sk["device_ms"],
                          launch_floor_ms=floor["device_ms"])
+        by_mask = feature_smoke.rank_select_by_mask(dev)
+        log(f"phase 5 {feature_smoke.by_mask_note(by_mask, floor)} ({card})")
+        for k in kernels:
+            if k["name"] == "smoke_rank_select":
+                k["device_ms_by_mask"] = {
+                    name: ms for name, (_n, ms) in by_mask.items()}
         t5h = time.perf_counter()
 
         # every probe sweep once, the probe kernels' counters reset first

@@ -491,41 +491,96 @@ smoke_gather_kernel(const int32_t* __restrict__ cid,
 // Replaces scratch/pallas_smoke2.py:24-51: the sum of table[c, 0, :] over
 // the columns c of mask [8, 128] that hold any value > 0.5, in ascending
 // c.  The TPU kernel ranks the set columns with a triangular matmul
-// (cumsum has no Mosaic lowering) and a per-step count; here a thread per
-// column, a warp scan of the column flags gives each set column its rank,
-// which indexes a shared-memory list of set columns.  One block.
+// (cumsum has no Mosaic lowering) and adds one dynamically indexed table
+// row a fori_loop step.  Each output lane's adds are one chain of
+// dependent FP32 adds, from 0.0f in ascending c, as the plain version adds
+// them: that chain is the semantics; a tree or a split accumulator is not.
 //
-// What bounds it on an H100: not the launch alone.  It takes 4.2x the
-// empty kernel's device time (PERF.md): the loop over the set columns (40
-// of them on the probe's mask) reads one table entry from global memory
-// an iteration into the sum.  Not redesigned yet: loading every selected
-// entry before the ordered adds would leave about one read on the path.
+// What bounds it on an H100: the launch and its dependent steps, not
+// bytes (4 KB of mask and n rows of 512 bytes in, 512 bytes out: 7.5 ns at
+// 3.35 TB/s on the probe's mask).  The first version read the mask in a
+// short-circuit loop, ranked by a shuffle scan and read one table entry
+// from global memory a step of the sum.  The design leaves one read of
+// global memory, two barriers and the n-add chain on the path:
+//  1. The 128 output lanes are split over kRankBlocks blocks of 128
+//     threads, kRankLanes (one 16-byte slice of a row) a block.  A lane's
+//     chain stays in one thread in ascending c, so the bits are the plain
+//     version's: no block splits a lane's sum, and each reads all the mask.
+//  2. Thread c issues its mask column's 8 loads and the slice of table row
+//     c at once: every row the mask may select is read beside the mask, not
+//     behind it (a block reads 6 KB; the grid reads the table once).
+//  3. A warp's __ballot_sync holds its 32 column flags, the lowest column
+//     in the lowest bit; one __syncthreads publishes the four.  Thread c of
+//     a set column stores its slice at its rank (the set columns below it),
+//     16 bytes apart; a second __syncthreads publishes them.
+//  4. kRankLanes threads add the ranked slices in rank order from 0.0f,
+//     kRankBatch shared loads ahead of their adds; one store each.
+//
+// On the card this takes 1.39 us on the probe's mask, 1.68x the empty
+// kernel's, and 1.17-1.66 us from no set column to all 128 (PERF.md).
+// Slower in development: one block that staged the set rows by cp.async
+// (whole rows into one SM) or TMA bulk copies (issued lane by lane),
+// ranks by a walk of the set bits per thread, one warp a block, 8-32
+// lanes a block, and the slice read after the ranks.
+constexpr int kMaskRows = 8;
+constexpr int kRankLanes = 4;  // output lanes a block: one 16-byte slice
+constexpr int kRankBlocks = kLanes / kRankLanes;
+constexpr int kRankBatch = 16;  // ranked slices loaded ahead of their adds
+
+// A 16-byte load issued where it stands.  A coherent load may not cross a
+// barrier, so it stays beside the mask's loads; a read-only (.nc) load was
+// sunk behind the barrier into the branch that uses its value.
+__device__ __forceinline__ float4 load_here(const float* p) {
+  float4 v;
+  asm volatile("ld.global.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
 __global__ void __launch_bounds__(kLanes)
 smoke_rank_select_kernel(const float* __restrict__ mask,
                          const float* __restrict__ table,
                          float* __restrict__ out) {
-  __shared__ int wsum[4];
-  __shared__ int sel[kLanes];
-  const int lane = threadIdx.x;
+  // the slice of the j-th set row at j * kRankLanes
+  __shared__ __align__(16) float ranked[kLanes * kRankLanes];
+  __shared__ __align__(16) unsigned word[kLanes / 32];
+  const int c = threadIdx.x;
+  const int w = c / 32, l = c % 32;
+  const int lane0 = blockIdx.x * kRankLanes;
+  float m[kMaskRows];
+#pragma unroll
+  for (int i = 0; i < kMaskRows; ++i) m[i] = mask[i * kLanes + c];
+  const float4 slice = load_here(table + c * kLanes + lane0);
   bool hit = false;
-  for (int i = 0; i < 8; ++i) hit = hit || mask[i * kLanes + lane] > 0.5f;
-  int cum = hit ? 1 : 0;  // inclusive scan within the warp
-  for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, cum, off);
-    if ((lane & 31) >= off) cum += y;
+#pragma unroll
+  for (int i = 0; i < kMaskRows; ++i) hit |= m[i] > 0.5f;
+  const unsigned bits = __ballot_sync(0xffffffffu, hit);
+  if (l == 0) word[w] = bits;
+  __syncthreads();
+  const uint4 ws = *reinterpret_cast<const uint4*>(word);
+  const int p0 = __popc(ws.x), p1 = __popc(ws.y), p2 = __popc(ws.z);
+  const int n = p0 + p1 + p2 + __popc(ws.w);
+  if (hit) {
+    const int below = (w > 0 ? p0 : 0) + (w > 1 ? p1 : 0) +
+                      (w > 2 ? p2 : 0) + __popc(bits & ((1u << l) - 1u));
+    *reinterpret_cast<float4*>(ranked + below * kRankLanes) = slice;
   }
-  if ((lane & 31) == 31) wsum[lane >> 5] = cum;
   __syncthreads();
-  for (int w = 0; w < (lane >> 5); ++w) cum += wsum[w];
-  if (hit) sel[cum - 1] = lane;  // rank select: the (cum-1)-th set column
-  const int n = wsum[0] + wsum[1] + wsum[2] + wsum[3];
-  __syncthreads();
+  if (c >= kRankLanes) return;
   float acc = 0.0f;
-  for (int j = 0; j < n; ++j) {
-    // the TPU kernel's pl.when(c < 128) branch: a no-op
-    acc = acc + table[(size_t)sel[j] * kLanes + lane];
+#pragma unroll
+  for (int j0 = 0; j0 < kLanes; j0 += kRankBatch) {
+    if (j0 >= n) break;
+    float v[kRankBatch];
+#pragma unroll
+    for (int k = 0; k < kRankBatch; ++k)
+      v[k] = ranked[(j0 + k) * kRankLanes + c];
+#pragma unroll
+    for (int k = 0; k < kRankBatch; ++k)
+      if (j0 + k < n) acc = acc + v[k];
   }
-  out[lane] = acc;
+  out[lane0 + c] = acc;
 }
 
 // ---------------------------------------------------------------------
@@ -763,9 +818,10 @@ int srt_smoke_gather(const void* cid, const void* table, const void* rays,
   return (int)cudaGetLastError();
 }
 
+// table 16-byte aligned.
 int srt_smoke_rank_select(const void* mask, const void* table, void* out,
                           void* stream) {
-  smoke_rank_select_kernel<<<1, kLanes, 0, (cudaStream_t)stream>>>(
+  smoke_rank_select_kernel<<<kRankBlocks, kLanes, 0, (cudaStream_t)stream>>>(
       (const float*)mask, (const float*)table, (float*)out);
   return (int)cudaGetLastError();
 }

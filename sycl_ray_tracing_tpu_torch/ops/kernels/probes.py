@@ -14,7 +14,9 @@ Kernels (csrc/probes.cu, CUDA C++ for sm_90a, -fmad=false):
     CUDA block (micro_super.py:47), each output starting at ``init``.
   * ``smoke_gather``, ``smoke_rank_select``, ``mosaic_probe``: the Pallas
     feature smoke kernels (pallas_smoke.py:67, pallas_smoke2.py:61,
-    probe_mosaic.py:59).
+    probe_mosaic.py:59).  ``smoke_rank_select`` splits its 128 output
+    lanes over 32 blocks; each lane's adds stay one chain in ascending
+    column order, as in the plain version.
   * ``null_launch`` and ``floor_rung``: an empty kernel and the rungs
     above it (one read of global memory, two dependent ones, one read and
     128 dependent adds), measurement references for the launch floor (no
@@ -320,7 +322,11 @@ def smoke_rank_select_args(mask, table, impl=None):
     runs."""
     _check("mask", mask, torch.float32, (8, T_CLUSTER))
     _check("table", table, torch.float32, (T_CLUSTER, 1, T_CLUSTER))
-    return _use_plain("smoke_rank_select", impl, mask, table)
+    if _use_plain("smoke_rank_select", impl, mask, table):
+        return True
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned (16-byte loads)")
+    return False
 
 
 def smoke_rank_select(mask, table, impl=None):

@@ -74,6 +74,37 @@ def rank_select_inputs(device) -> dict:
                 table=torch.as_tensor(table, device=device))
 
 
+# row 11's order-sensitive masks: the rate of set entries of each
+RANK_SELECT_DENSITIES = {"5%": 0.05, "20%": 0.2, "all": 1.0, "none": 0.0}
+
+
+def rank_select_random_inputs(device, seed: int = SEED,
+                              density: float = 0.05) -> dict:
+    """Inputs whose sum changes with the order of the adds: a normal table
+    and a mask whose entries are set (> 0.5) at rate ``density``.  A
+    quarter of the entries sit on the edge of the strict compare: exactly
+    0.5 (not set) or the next float above it (set)."""
+    rng = np.random.default_rng(seed)
+    shape = (8, 128)
+    above = np.nextafter(np.float32(0.5), np.float32(1.0))
+    hit = rng.random(shape) < density
+    mask = np.where(hit,
+                    np.maximum(rng.uniform(0.5, 1.0, shape).astype(
+                        np.float32), above),
+                    rng.uniform(-1.0, 0.5, shape).astype(np.float32))
+    edge = rng.random(shape) < 0.25
+    mask[edge & hit] = above
+    mask[edge & ~hit] = 0.5
+    table = rng.normal(size=(128, 1, 128)).astype(np.float32)
+    return dict(mask=torch.as_tensor(mask, device=device),
+                table=torch.as_tensor(table, device=device))
+
+
+def set_columns(mask) -> int:
+    """The columns of mask that hold a value > 0.5."""
+    return int((mask > 0.5).any(dim=0).sum())
+
+
 def rank_select_want(w: dict):
     """pallas_smoke2.py:74-75: the table rows of the set columns, summed."""
     cols = torch.nonzero((w["mask"] > 0).any(dim=0)).flatten()
@@ -179,6 +210,28 @@ def splits(device, reps: int = 20) -> dict:
     return out
 
 
+def rank_select_by_mask(device, reps: int = 20) -> dict:
+    """{mask: (set columns, device ms a launch by the profiler)} of
+    smoke_rank_select on each of RANK_SELECT_DENSITIES' masks: how its
+    time grows with the set columns."""
+    out = {}
+    for name, density in RANK_SELECT_DENSITIES.items():
+        w = rank_select_random_inputs(device, density=density)
+        out[name] = (set_columns(w["mask"]), kernel_ms(
+            lambda: pk.smoke_rank_select(w["mask"], w["table"]),
+            "smoke_rank_select_kernel", reps))
+    return out
+
+
+def by_mask_note(by_mask: dict, floor: dict) -> str:
+    """One line of rank_select_by_mask against the empty kernel's."""
+    cells = "; ".join(f"{name} ({n} set columns) {ms * 1e3:.2f} us, "
+                      f"{ms / floor['device_ms']:.2f}x"
+                      for name, (n, ms) in by_mask.items())
+    return ("smoke_rank_select by mask, (c) device a launch by the profiler "
+            f"against the empty kernel's: {cells}")
+
+
 def split_note(s: dict, floor: dict) -> str:
     """One line of launch_split against the empty kernel's."""
     return (f"(a) {s['events_ms']:.4f} ms a call by events; (b) host "
@@ -190,16 +243,36 @@ def split_note(s: dict, floor: dict) -> str:
             "kernel's")
 
 
+def hold_random_note() -> str:
+    """What hold_random holds, with the set columns of each mask."""
+    masks = {name: rank_select_random_inputs("cpu", density=d)["mask"]
+             for name, d in RANK_SELECT_DENSITIES.items()}
+    cols = ", ".join(f"{name} {set_columns(m)}" for name, m in masks.items())
+    return ("smoke_gather (normal table and rays, a row named twice), "
+            "smoke_rank_select (normal table; set columns of the masks: "
+            f"{cols}; entries at 0.5 and just above it) and "
+            "every mosaic_probe feature (ns 7, cand in {-1, 0, 1}, normal x "
+            "with column 2 at -5) on seeded random inputs")
+
+
 def hold_random(device):
-    """smoke_gather and mosaic_probe (every feature, each on the seed the
-    CPU tests use) against their plain versions on the random inputs, bit
-    for bit; raises where they differ."""
+    """smoke_gather, smoke_rank_select (on each of RANK_SELECT_DENSITIES'
+    masks) and mosaic_probe (every feature, each on the seed the CPU tests
+    use) against their plain versions on the random inputs, bit for bit;
+    raises where they differ."""
     w = gather_random_inputs(device)
     args = (w["cid"], w["table"], w["rays"])
     if not torch.equal(pk.smoke_gather(*args),
                        pk.smoke_gather(*args, impl="plain")):
         raise RuntimeError("smoke_gather differs from its plain version on "
                            "the random inputs")
+    for name, density in RANK_SELECT_DENSITIES.items():
+        w = rank_select_random_inputs(device, density=density)
+        args = (w["mask"], w["table"])
+        if not torch.equal(pk.smoke_rank_select(*args),
+                           pk.smoke_rank_select(*args, impl="plain")):
+            raise RuntimeError(f"smoke_rank_select differs from its plain "
+                               f"version on the random {name} mask")
     for feat in pk.MOSAIC_FEATURES:
         w = mosaic_random_inputs(device, len(feat))
         args = (w["ns"], w["cand"], w["x"])
@@ -255,14 +328,16 @@ def run(device, reps: int = 20):
         *args, "all", impl="plain"))
 
     hold_random(device)
-    print("smoke_gather and mosaic_probe (every feature) bit-identical to "
-          "their plain versions on the random inputs", flush=True)
+    print(f"{hold_random_note()}: bit-identical to their plain versions",
+          flush=True)
     split = splits(device, reps)
     print(floor_note(split["null_launch"], ladder(device, reps)),
           flush=True)
     for name in ("smoke_gather", "smoke_rank_select", "mosaic_probe"):
         print(f"{name} split: {split_note(split[name], split['null_launch'])}",
               flush=True)
+    print(by_mask_note(rank_select_by_mask(device, reps),
+                       split["null_launch"]), flush=True)
     return split
 
 

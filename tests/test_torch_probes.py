@@ -213,6 +213,73 @@ def test_smoke_rank_select_matches_pallas_smoke2():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("name", list(feature_smoke.RANK_SELECT_DENSITIES))
+def test_smoke_rank_select_random_matches_pallas_smoke2(name):
+    """The masks chip_smoke holds the kernel to (5%, 20%, every column and
+    no column set; entries exactly 0.5, which is not set, and the next
+    float above it), on a normal table: pallas_smoke2.py's kernel in
+    interpret mode adds in ascending columns as the plain version does,
+    so the two agree bit for bit."""
+    ns = scratch_defs("pallas_smoke2.py", ["kernel"])
+    w = feature_smoke.rank_select_random_inputs(
+        "cpu", density=feature_smoke.RANK_SELECT_DENSITIES[name])
+    mask, table = w["mask"].numpy(), w["table"].numpy()
+    n = int((mask > 0.5).any(axis=0).sum())
+    assert n == {"5%": 40, "20%": 106, "all": T, "none": 0}[name]
+    if name != "all":
+        assert (mask == 0.5).any()
+    if name != "none":
+        assert (mask == np.nextafter(np.float32(0.5), np.float32(1))).any()
+    f = pl.pallas_call(
+        ns["kernel"],
+        out_shape=jax.ShapeDtypeStruct((1, T), jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        interpret=True)
+    want = np.asarray(f(mask, table))
+    got = PK.smoke_rank_select(w["mask"], w["table"])
+    np.testing.assert_array_equal(got.numpy(), want)
+    if name == "none":
+        assert not np.signbit(got.numpy()).any()   # +0.0, as 0.0f starts
+
+
+@pytest.mark.parametrize("inputs", ["script", "random"])
+def test_smoke_rank_select_plain_adds_columns_in_order(inputs):
+    """smoke_rank_select_plain equals a float32 numpy loop that adds the
+    set columns' rows in ascending order, bit for bit.  On the random
+    inputs (the 5% mask chip_smoke holds the kernel to) the reversed order
+    gives other bits, on the script's arange table it does not: only the
+    random table catches a kernel that reordered the sum."""
+    w = (feature_smoke.rank_select_inputs("cpu") if inputs == "script"
+         else feature_smoke.rank_select_random_inputs("cpu"))
+    mask, table = w["mask"].numpy(), w["table"].numpy()
+    cols = np.nonzero((mask > 0.5).any(axis=0))[0]
+    acc = np.zeros(T, np.float32)
+    for c in cols:
+        acc = acc + table[c, 0]
+    got = PK.smoke_rank_select_plain(w["mask"], w["table"]).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, acc[None])
+    rev = np.zeros(T, np.float32)
+    for c in cols[::-1]:
+        rev = rev + table[c, 0]
+    assert (rev != acc).any() == (inputs == "random")
+
+
+def test_feature_smoke_rank_select_notes():
+    """hold_random runs its holds on CPU tensors (the plain versions on
+    both sides); its note and the by-mask line name every mask of row 11
+    with its set columns."""
+    feature_smoke.hold_random("cpu")
+    note = feature_smoke.hold_random_note()
+    assert "5% 40, 20% 106, all 128, none 0" in note
+    by_mask = {name: (n, 1e-3 * (1 + i)) for i, (name, n) in enumerate(
+        (("5%", 40), ("20%", 106), ("all", T), ("none", 0)))}
+    line = feature_smoke.by_mask_note(by_mask, {"device_ms": 1e-3})
+    assert "5% (40 set columns) 1.00 us, 1.00x" in line
+    assert "none (0 set columns) 4.00 us, 4.00x" in line
+
+
 @pytest.mark.parametrize("feature", list(PK.MOSAIC_FEATURES))
 def test_mosaic_probe_matches_probe_mosaic(feature):
     ns = scratch_defs("probe_mosaic.py", ["kernel"], FEAT=feature)

@@ -160,6 +160,13 @@ Phases (any failure exits non-zero):
      with the example's arguments on a one-rank NCCL group: exit 0 (the
      diffuse error fell) and no list-kernel launch (the trainer builds no
      clusters).
+ 11. The port's benchmark entry point in a subprocess with a time limit of
+     its own (python -m sycl_ray_tracing_tpu_torch.bench --sections 1,2,3
+     --repeats 1 --steady 2: the 200k frame, its fwd+bwd and the 870k
+     frame), each line echoed: every section's line must be there with ok
+     true and overflow false, block_tiles launched in each section and
+     list_tiles in section 1, the last line must hold dragon_fwd_mrays
+     and the process must exit 0.
 
 The second-to-last lines are the card line and one JSON object describing
 each kernel (time, plain version's time, launches, and the bound: the
@@ -223,6 +230,10 @@ EX_SPP = {"config2_obj_bvh": 4, "config3_dragon_mis": 1,
 EX_STEPS = 5
 BLOCK_REPLACES = "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:298"
 LIST_REPLACES = "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:245"
+# phase 11: the bench's command line and its time limit in seconds
+BENCH_ARGS = ("--sections", "1,2,3", "--repeats", "1", "--steady", "2")
+BENCH_TIMEOUT = 600
+BENCH_SECTIONS = ("dragon_fwd", "dragon_fwd_bwd", "dragon870k_fwd")
 
 
 def log(msg: str):
@@ -1866,6 +1877,47 @@ def examples_phase(card, dev) -> dict:
     return found
 
 
+def bench_phase(card) -> None:
+    """Phase 11: the port's bench, sections 1-3, in a subprocess (see the
+    module docstring)."""
+    import subprocess
+
+    t11 = time.perf_counter()
+    cmd = [sys.executable, "-m", "sycl_ray_tracing_tpu_torch.bench",
+           *BENCH_ARGS]
+    try:
+        proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                              timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"phase 11: the bench ran past {BENCH_TIMEOUT} s"
+                           ) from e
+    lines = []
+    for text in proc.stdout.splitlines():
+        log(f"phase 11 bench: {text}")
+        if text.startswith("{"):
+            lines.append(json.loads(text))
+    for text in proc.stderr.splitlines()[-20:]:
+        log(f"phase 11 bench stderr: {text}")
+    sections = {ln["section"]: ln for ln in lines if "section" in ln}
+    last = lines[-1] if lines else {}
+    bad = [f"exit {proc.returncode}"] if proc.returncode != 0 else []
+    for i, name in enumerate(BENCH_SECTIONS):
+        ln = sections.get(name)
+        if ln is None or not ln["ok"]:
+            bad.append(f"section {name} missing or failed")
+            continue
+        if ln.get("dragon_overflow") or ln.get("dragon870k_overflow"):
+            bad.append(f"section {name} overflow")
+        if ln["launches"]["block_tiles"] == 0 or (
+                i == 0 and ln["launches"]["list_tiles"] == 0):
+            bad.append(f"section {name} launches {ln['launches']}")
+    if "dragon_fwd_mrays" not in last.get("extra", {}):
+        bad.append("the last line lacks dragon_fwd_mrays")
+    log(f"phase 11 took {time.perf_counter() - t11:.1f} s, card {card}")
+    if bad:
+        raise RuntimeError("phase 11: " + "; ".join(bad))
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     try:
@@ -2338,6 +2390,10 @@ def main() -> int:
         entry["max_abs_err"] = max(
             [entry["max_abs_err"]]
             + [v["max_abs_err"] for v in entry["examples"].values()])
+
+    # ---- phase 11: the port's bench, sections 1-3 ----
+    torch.cuda.empty_cache()
+    bench_phase(card)
 
     for k in kernels:
         del k["ops"], k["bytes"]

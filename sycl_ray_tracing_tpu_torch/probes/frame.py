@@ -33,27 +33,39 @@ BUILDS = ("candidate_clusters_hier", "candidate_clusters_grouped",
           "candidate_clusters")
 
 
-def profile(fn, kernels=KERNELS) -> dict:
+def profile(fn, kernels=KERNELS, warmup: bool = False) -> dict:
     """Run ``fn`` once under torch.profiler (CUDA activity) and
     return {"kernels": {name: (launches, device ms, longest launch's
     device ms)} for each name in ``kernels`` (a kernel counts where its
     name holds it), "top": [(device ms, launches, name)] of the TOP_OPS
     device ops with the most time, "device_ms": all CUDA activity,
     "wall_ms": host clock around fn and the synchronise}.  Device times
-    are 0 where the profiler saw no CUDA activity."""
+    are 0 where the profiler saw no CUDA activity.  With ``warmup``, fn
+    runs once more before, in the profiler's warm-up cycle, whose trace is
+    dropped."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
+    from torch.profiler import schedule
 
     torch.cuda.synchronize()
     # CUDA activity only, read from the raw records: on an 870k frame
     # (H100, torch 2.11) recording the host's ops too slowed the frame by
     # a third, and building the profiler's event tree took ~50 s with
     # them and ~28 s without
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+    cycle = schedule(wait=0, warmup=1, active=1, repeat=1) if warmup \
+        else None
+    with torch_profile(activities=[ProfilerActivity.CUDA],
+                       schedule=cycle) as prof:
+        if warmup:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if warmup:
+            prof.step()
     found = {k: (0, 0.0, 0.0) for k in kernels}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != torch.autograd.DeviceType.CUDA:
@@ -71,19 +83,34 @@ def profile(fn, kernels=KERNELS) -> dict:
                 wall_ms=wall * 1e3)
 
 
-def kernel_ms(fn, kernel: str, reps: int = 20) -> float:
+def kernel_ms(fn, kernel: str, reps: int = 20, tries: int = 3) -> float:
     """Device ms per launch of the kernels whose name holds ``kernel``
     over ``reps`` back-to-back calls of ``fn`` (after one warm-up call),
     by the profiler: the kernel's own time, without the host's launch
-    path that CUDA events around the calls also hold."""
+    path that CUDA events around the calls also hold.  Each call of
+    ``fn`` launches the kernel once.  The profiler has missed launches of
+    a short run late in a long process (H100, torch 2.11, chip_smoke:
+    none of 20 empty-kernel launches once, 19 of 20 in three runs in a
+    row another time), so each run is recorded after a warm-up cycle of
+    the profiler, and a run in which it did not record all ``reps``
+    launches with their device time is profiled again, up to ``tries``
+    runs in all; then it raises."""
     fn()
 
     def calls():
         for _ in range(reps):
             fn()
 
-    n, ms, _top = profile(calls, (kernel,))["kernels"][kernel]
-    return ms / n if n else 0.0
+    seen = []
+    for _ in range(tries):
+        n, ms, _top = profile(calls, (kernel,),
+                              warmup=True)["kernels"][kernel]
+        if n == reps and ms > 0:
+            return ms / n
+        seen.append(n)
+    raise RuntimeError(f"the profiler did not record all {reps} launches "
+                       f"of {kernel} with their device time in any of "
+                       f"{tries} runs (launches seen: {seen})")
 
 
 def build_ms(render) -> dict:

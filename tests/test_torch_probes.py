@@ -929,6 +929,32 @@ def test_frame_profile_report_and_triangle_count(monkeypatch):
     assert seen == [870_000]
 
 
+def test_kernel_ms_profiles_again_when_the_profiler_saw_no_launch(
+        monkeypatch):
+    """kernel_ms: a profiled run that recorded none or only some of its
+    launches (or no device time) is run again; a kernel never seen with
+    all its launches raises instead of averaging what the profiler saw."""
+    from sycl_ray_tracing_tpu_torch.probes import frame
+
+    readings = [(0, 0.0, 0.0), (5, 0.0, 0.0), (4, 2.0, 0.6), (5, 2.0, 0.6)]
+    calls = []
+
+    def fake(fn, kernels, warmup=False):
+        assert warmup       # each run after the profiler's warm-up cycle
+        fn()
+        return {"kernels": {kernels[0]: readings.pop(0)}}
+
+    monkeypatch.setattr(frame, "profile", fake)
+    assert frame.kernel_ms(lambda: calls.append(1), "k", reps=5,
+                           tries=4) == 0.4
+    assert len(calls) == 1 + 4 * 5 and readings == []
+    readings[:] = [(0, 0.0, 0.0), (4, 2.0, 0.6), (3, 1.0, 0.5)]
+    with pytest.raises(RuntimeError, match=r"all 5 launches of k with "
+                       r"their device time in any of 3 runs \(launches "
+                       r"seen: \[0, 4, 3\]\)"):
+        frame.kernel_ms(lambda: None, "k", reps=5)
+
+
 def test_frame_build_ms_records_and_restores(monkeypatch):
     """build_ms replays the candidate builds a render called (here one
     grouped main pass) and puts the list tracer's functions back.  (The

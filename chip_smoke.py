@@ -167,16 +167,30 @@ Phases (any failure exits non-zero):
      true and overflow false, block_tiles launched in each section and
      list_tiles in section 1, the last line must hold dragon_fwd_mrays
      and the process must exit 0.
+ 12. The JAX package's public calls that the port takes as it does.  The
+     default (Morton) build_clusters of a 2,000-triangle stand-in on the
+     card, equal to the CPU's and to morton_order, with the default pair
+     budgets; at candidate depth 3 (block lists of 12 slots, escalation
+     at 24) the counters reset just before multi_query (a closest-hit and
+     an any-hit query fused) and intersect_list: both list kernels must
+     launch, multi_query's (t, packed, overflow), _run's (t, packed,
+     resolved, overflow) and intersect_list's hit record and overflow
+     bit-identical to the plain versions, multi_query overflow False and
+     its closest hits equal to brute force.  Then candidate_clusters,
+     _grouped and _hier (per ray and grouped, at their default maxs and
+     group) at exact False and True: the card's outputs equal the CPU's
+     bit for bit, and exact=False poisons full rows that exact=True keeps.
 
 The second-to-last lines are the card line and one JSON object describing
 each kernel (time, plain version's time, launches, and the bound: the
 least time an H100 could take for the same work); the last line is
 {"ok": true, "device": {...}}.  Each kernel's entry also carries its
 launches in the fwd+bwd frame (phase 7), the parity frame (phase 8), the
-CLI frame (phase 9, "cli": launches, event ms, device ms, bound), the
-trainer ("train": launches, those in the backward, launches held, the
-largest held launch's rays, max |dt|), render_sharded ("sharded": the
-same without the backward) and each BASELINE config ("examples": launches,
+CLI frame (phase 9, "cli": launches, event ms, device ms, bound), phase
+12's list path ("api_path": launches), the trainer ("train": launches,
+those in the backward, launches held, the largest held launch's rays, max
+|dt|), render_sharded ("sharded": the same without the backward) and
+each BASELINE config ("examples": launches,
 renders, launches held, the largest held launch's rays, max |dt|; and
 "config4_frame": launches, event ms, device ms, bound of one frame).
 Without CUDA, or without the rest of the
@@ -234,6 +248,12 @@ LIST_REPLACES = "sycl_ray_tracing_tpu/ops/pallas/listtrace.py:245"
 BENCH_ARGS = ("--sections", "1,2,3", "--repeats", "1", "--steady", "2")
 BENCH_TIMEOUT = 600
 BENCH_SECTIONS = ("dragon_fwd", "dragon_fwd_bwd", "dragon870k_fwd")
+# phase 12: the Morton-clustered scene (dragon_standin's 1,890 triangles,
+# 15 clusters), its rays, and the list depth that makes both list kernels
+# launch (block lists of 12 slots, escalation at 24)
+API_TRIS = 2_000
+API_RAYS = 8192
+API_LIST_MAXC = 3
 
 
 def log(msg: str):
@@ -853,7 +873,7 @@ def big_frame_phase(kernels, card, cam, cfg, key, tile_key, px0, py0):
         small = 4
         c2, t2, _of, _cov = pc.candidate_clusters_hier(
             cs, rays[:, 0:3], rays[:, 3:6], rays[:, 6], maxc, small,
-            lt.RB_SHARE, grouped=True, ray_cert=True)
+            lt.RB_SHARE, grouped=True, exact=True, ray_cert=True)
         n2 = int((t2[:, -1] < 0).sum())
         if not n2:
             raise RuntimeError(f"maxs {small} poisoned no list either")
@@ -875,7 +895,8 @@ def big_frame_phase(kernels, card, cam, cfg, key, tile_key, px0, py0):
 
     # the same rays' hierarchical lists against the dense build
     dc, dt, _dof, _dcov = pc.candidate_clusters_grouped(
-        cs, rays[:, 0:3], rays[:, 3:6], rays[:, 6], maxc, lt.RB_SHARE)
+        cs, rays[:, 0:3], rays[:, 3:6], rays[:, 6], maxc, lt.RB_SHARE,
+        exact=True, ray_cert=True)
     hc = torch.where(cand_k != k2, cand_k, -1)
     ok = ~poisoned
     counts = torch.equal((hc >= 0).sum(1)[ok], (dc >= 0).sum(1)[ok])
@@ -1918,6 +1939,145 @@ def bench_phase(card) -> None:
         raise RuntimeError("phase 11: " + "; ".join(bad))
 
 
+def api_rays(tris, n: int, seed: int):
+    """``n`` rays from a box around the mesh toward random triangles'
+    centroids (numpy): (o, d, distance to the centroid)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi = tris.min(axis=(0, 1)), tris.max(axis=(0, 1))
+    pad = 0.5 * (hi - lo)
+    o = rng.uniform(lo - pad, hi + pad, (n, 3)).astype(np.float32)
+    d = tris[rng.integers(0, tris.shape[0], n)].mean(axis=1) - o
+    dist = np.linalg.norm(d, axis=-1)
+    return o, (d / dist[:, None]).astype(np.float32), dist.astype(np.float32)
+
+
+def api_phase(kernels, card, dev) -> None:
+    """Phase 12: the JAX package's public calls that the port now takes
+    as it does (see the module docstring).  Adds each list kernel's
+    launches on this path to its kernels entry."""
+    import numpy as np
+    import torch
+
+    from sycl_ray_tracing_tpu_torch.ops import cluster as pc
+    from sycl_ray_tracing_tpu_torch.ops.intersect import (
+        BIG_T,
+        intersect_triangles,
+    )
+    from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as lt
+    from sycl_ray_tracing_tpu_torch.utils.procedural import dragon_standin
+
+    t12 = time.perf_counter()
+    tris_np = dragon_standin(API_TRIS, seed=SEED)
+    # the default order, Morton, on the card and on the CPU
+    base = pc.build_clusters(tris_np, device=dev)
+    base_cpu = pc.build_clusters(tris_np, device="cpu")
+    morton = (torch.equal(base.cl_tri_idx.cpu(), base_cpu.cl_tri_idx)
+              and torch.equal(
+                  base_cpu.cl_tri_idx.reshape(-1)[:tris_np.shape[0]].long(),
+                  torch.from_numpy(pc.morton_order(tris_np))))
+    log(f"phase 12 build_clusters default order: {tris_np.shape[0]} "
+        f"triangles, {base.num_clusters} clusters (padded), Morton "
+        f"order={morton}, budgets "
+        f"{base.p1_budget}/{base.p2_budget}")
+    if not morton or (base.p1_budget, base.p2_budget) != (16384, 65536):
+        raise RuntimeError("build_clusters' default is not the JAX "
+                           "package's Morton build")
+    cs = base.with_list_maxc(API_LIST_MAXC)
+    o_np, d_np, dist = api_rays(tris_np, API_RAYS, SEED)
+    o, d = torch.tensor(o_np, device=dev), torch.tensor(d_np, device=dev)
+    tris = torch.tensor(tris_np, device=dev)
+    t_any = torch.tensor(dist, device=dev) * 1.5
+    queries = [(o, d, None, None), (o, d, t_any, None, True)]
+
+    # the list path: multi_query (a closest-hit and an any-hit query
+    # fused) and intersect_list, the counters reset just before
+    lt.reset_launch_counts()
+    of_list = [[], []]
+    res_k, of_k = lt.multi_query(cs, queries)
+    hit_k = lt.intersect_list(cs, tris, o, d, of_list[0])
+    torch.cuda.synchronize()
+    launches = dict(lt.LAUNCHES)
+    res_p, of_p = lt.multi_query(cs, queries, impl="plain")
+    hit_p = lt.intersect_list(cs, tris, o, d, of_list[1], impl="plain")
+    same_mq = bool(of_k) == bool(of_p) and all(
+        torch.equal(a, b) for rk, rp in zip(res_k, res_p)
+        for a, b in zip(rk, rp))
+    same_hit = bool(of_list[0][0]) == bool(of_list[1][0]) and all(
+        torch.equal(a, b) for a, b in zip(hit_k, hit_p))
+    both = torch.cat([o, o]), torch.cat([d, d])
+    t_lim = torch.cat([torch.full_like(t_any, BIG_T), t_any])
+    ah = torch.cat([torch.zeros_like(t_any, dtype=torch.bool),
+                    torch.ones_like(t_any, dtype=torch.bool)])
+    maxc = lt._default_maxc(True, cs)
+    runs = [lt._run(cs, *both, t_lim, maxc, ah, share=True, impl=impl)
+            for impl in (None, "plain")]
+    same_run = all(torch.equal(a, b) for a, b in zip(*runs))
+    # multi_query's closest hits, every ray certified, against brute force
+    t_mq, prim_mq = lt.packed_to_prim(cs, *res_k[0])
+    ref = intersect_triangles(o, d, tris)
+    agree = (torch.equal(prim_mq.long(),
+                         torch.where(ref.hit, ref.prim.long(), -1))
+             and bool(((t_mq - ref.t).abs()[ref.hit] <= 1e-5).all()))
+    log(f"phase 12 list path on the Morton clusters at list depth "
+        f"{API_LIST_MAXC} (block lists of {maxc} slots, escalation at "
+        f"{min(128, 2 * maxc)}): {API_RAYS} rays x 2 queries, launches "
+        f"{launches}; multi_query (t, packed, overflow) identical="
+        f"{same_mq}, overflow={bool(of_k)}; _run (t, packed, resolved, "
+        f"overflow) identical={same_run}; intersect_list (hit record, "
+        f"overflow) identical={same_hit}, overflow={bool(of_list[0][0])}; "
+        f"multi_query's {int(ref.hit.sum())} closest hits against the "
+        f"brute-force oracle agree={agree}")
+    if not (same_mq and same_run and same_hit and agree) or bool(of_k):
+        raise RuntimeError("phase 12: the list path on Morton clusters "
+                           "failed its checks")
+    if min(launches.values()) < 1:
+        raise RuntimeError(f"phase 12: a list kernel never launched: "
+                           f"{launches}")
+    for entry in kernels[:2]:
+        entry["api_path"] = {"launches": launches[entry["name"]]}
+
+    # the candidate builds at both values of exact: the card against the
+    # CPU, bit for bit
+    tl_np = np.full(API_RAYS, BIG_T, np.float32)
+    tl_np[::5] = 0.5 * dist[::5]
+    tl_np[::7] = -BIG_T
+    on_card = (base, o, d, torch.tensor(tl_np, device=dev))
+    on_cpu = (base_cpu, torch.from_numpy(o_np), torch.from_numpy(d_np),
+              torch.from_numpy(tl_np))
+    builds = []
+    for exact in (False, True):
+        builds += [
+            (f"candidate_clusters maxc 4 exact={exact}",
+             pc.candidate_clusters, (4,), dict(exact=exact)),
+            (f"candidate_clusters_grouped maxc 8 group 32 exact={exact}",
+             pc.candidate_clusters_grouped, (8, 32),
+             dict(exact=exact, ray_cert=exact))]
+        builds += [
+            (f"candidate_clusters_hier maxc 8 (default maxs, group) "
+             f"grouped={g} exact={exact}", pc.candidate_clusters_hier,
+             (8,), dict(grouped=g, exact=exact, ray_cert=g and exact))
+            for g in (False, True)]
+    poisoned = {}
+    for label, fn, pos, kw in builds:
+        out_k = fn(*on_card, *pos, **kw)
+        out_c = fn(*on_cpu, *pos, **kw)
+        same = len(out_k) == len(out_c) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(out_k, out_c))
+        poisoned[label] = int((out_c[1][:, -1] == -BIG_T).sum())
+        log(f"phase 12 {label}: {len(out_k)} outputs, card == CPU "
+            f"bit for bit={same}, {poisoned[label]} of "
+            f"{out_c[0].shape[0]} lists poisoned")
+        if not same:
+            raise RuntimeError(f"phase 12: {label} differs between the card "
+                               "and the CPU")
+    if poisoned["candidate_clusters maxc 4 exact=False"] <= \
+            poisoned["candidate_clusters maxc 4 exact=True"]:
+        raise RuntimeError("phase 12: exact=False poisoned no full row")
+    log(f"phase 12 took {time.perf_counter() - t12:.1f} s, card {card}")
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     try:
@@ -2394,6 +2554,10 @@ def main() -> int:
     # ---- phase 11: the port's bench, sections 1-3 ----
     torch.cuda.empty_cache()
     bench_phase(card)
+
+    # ---- phase 12: the JAX API's calls the port now takes alike ----
+    with torch.no_grad():
+        api_phase(kernels, card, dev)
 
     for k in kernels:
         del k["ops"], k["bytes"]

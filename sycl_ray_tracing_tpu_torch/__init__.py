@@ -10,3 +10,15 @@ This package never imports JAX.
 """
 
 __version__ = "0.1.0"
+
+from sycl_ray_tracing_tpu_torch.models.scene import Scene, Materials
+from sycl_ray_tracing_tpu_torch.models.camera import Camera
+from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
+
+__all__ = [
+    "Scene",
+    "Materials",
+    "Camera",
+    "RenderConfig",
+    "__version__",
+]

@@ -92,14 +92,14 @@ class Scene:
     materials: Materials
     material_indices: torch.Tensor     # [N] int32
     emissive_indices: torch.Tensor     # [K] int32 (triangle ids with Ke>0)
-    env_map: Optional[EnvMapSampler]   # None -> black sky
-    clusters: Optional[ClusterScene] = None
-    tri_areas: Optional[torch.Tensor] = None   # [N]
-    slot_packed: Optional[torch.Tensor] = None
     sphere_centers: Optional[torch.Tensor] = None   # [S,3] (None: empty)
     sphere_radii: Optional[torch.Tensor] = None     # [S]
     sphere_material: Optional[torch.Tensor] = None  # [S] int32
+    env_map: Optional[EnvMapSampler] = None         # None -> black sky
     bvh: Optional[ThreadedBVH] = None
+    clusters: Optional[ClusterScene] = None
+    tri_areas: Optional[torch.Tensor] = None   # [N]
+    slot_packed: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         dev = self.triangles.device

@@ -98,6 +98,16 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def available() -> bool:
+    """Whether the native library builds (at first use) and loads.  A
+    query only: load, sah_build and the parsers still raise on failure."""
+    try:
+        load()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def sah_build(triangles: np.ndarray, leaf_size: int = 4):
     """Binned-SAH build.  Returns (nodes_box [M,8] f32, nodes_meta [M,4]
     i32, slot_order [num_leaves*leaf_size] i32); raises on failure."""

@@ -79,12 +79,14 @@ def bvh_from_numpy(arrays: dict, device, leaf_size: int = 4) -> ThreadedBVH:
 
 
 def build_bvh_arrays(triangles: np.ndarray, leaf_size: int = 4,
-                     method: str = "sah") -> dict:
+                     method: str = "auto") -> dict:
     """The threaded BVH's tables over triangles [N,3,3], in numpy
     (bvh.py:82-197).  ``method``: "sah" (the native binned-SAH builder;
-    raises if it cannot be built) or "morton"."""
+    raises if it cannot be built), "auto" (the same: the JAX package's
+    "auto" takes SAH where its library loads, and the port's always
+    builds or raises) or "morton"."""
     tris = np.asarray(triangles, np.float32)
-    if method == "sah":
+    if method in ("auto", "sah"):
         from sycl_ray_tracing_tpu_torch import native
 
         nodes_box, nodes_meta, slot_order = native.sah_build(tris, leaf_size)
@@ -155,7 +157,7 @@ def build_bvh_arrays(triangles: np.ndarray, leaf_size: int = 4,
 
 
 def build_bvh(triangles: np.ndarray, leaf_size: int = 4,
-              method: str = "sah", device="cuda") -> ThreadedBVH:
+              method: str = "auto", device="cuda") -> ThreadedBVH:
     """A threaded BVH over triangles [N,3,3] on ``device`` (see
     build_bvh_arrays)."""
     device = resolve_device(device)

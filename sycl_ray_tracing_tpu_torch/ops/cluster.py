@@ -1,15 +1,17 @@
 """Clustered geometry and the candidate-list builds for the list tracer
 (counterpart of sycl_ray_tracing_tpu/ops/cluster.py).
 
-Triangles are grouped into clusters of T_CLUSTER=128 (SAH leaf order, or
-Morton order on request) and superclusters of S_CLUSTER=64; the tables
-are built in numpy exactly as the JAX package builds them.
+Triangles are grouped into clusters of T_CLUSTER=128 (Morton order by
+default, or the SAH leaf order that Scene.build_acceleration asks for) and
+superclusters of S_CLUSTER=64; the tables are built in numpy exactly as
+the JAX package builds them.
 
 The candidate builds are plain torch (they are XLA, not Pallas, in the
 JAX package):
   * the dense builds (``candidate_clusters``, ``_grouped``): a [rays, K2]
-    slab test, the EXACT nearest-first extraction (packed quantized-entry-t
-    | cluster-id keys, sorted) and the per-ray membership certificate;
+    slab test, the nearest-first extraction (packed quantized-entry-t |
+    cluster-id keys, sorted; ``exact`` chooses which rows keep their
+    certificate) and the per-ray membership certificate;
   * the supercluster-prefiltered build (``candidate_clusters_hier``) for
     scenes above 2*maxs*64 clusters: a [rays, K1] supercluster slab test,
     the threshold-min extraction of each block's ``maxs`` nearest
@@ -28,9 +30,6 @@ each pair's ``fanout`` nearest children), the compaction of the hit
 128 triangles, and segment reductions (``scatter_reduce`` amin / amax)
 back to rays.  A pair past a budget is dropped and raises the overflow
 flag, as in the JAX package.
-
-Left out: the approximate-recall extraction (every list-tracer pass asks
-for exact extraction).
 """
 
 from __future__ import annotations
@@ -66,15 +65,15 @@ class ClusterScene:
     cl_box: torch.Tensor       # [K2,8] f32 per-cluster AABB
     cl_tris: torch.Tensor      # [K2, 9*T] f32 planar triangle coordinate rows
     cl_tri_idx: torch.Tensor   # [K2, T] i32 original tri index (-1 pad)
+    # the pair tracer's static (ray, supercluster) and (ray, cluster) pair
+    # budgets (build_clusters sets them; 0 here as in the JAX package),
+    # and its per-pair child cap (0 = every hit child, the exact path)
+    p1_budget: int = 0
+    p2_budget: int = 0
+    fanout: int = 0
     # per-ray candidate-list depth override for the list tracer (0 = module
     # defaults): the overflow-regrow knob of the JAX package
     list_maxc: int = 0
-    # the pair tracer's static (ray, supercluster) and (ray, cluster) pair
-    # budgets (build_clusters' defaults), and its per-pair child cap
-    # (0 = every hit child, the exact path)
-    p1_budget: int = 16 * 1024
-    p2_budget: int = 64 * 1024
-    fanout: int = 0
 
     @property
     def num_clusters(self) -> int:
@@ -156,19 +155,18 @@ def morton_order(triangles: np.ndarray) -> np.ndarray:
     return np.argsort(_morton3((cent - lo) / span), kind="stable")
 
 
-def build_cluster_arrays(triangles: np.ndarray, order="sah") -> dict:
+def build_cluster_arrays(triangles: np.ndarray, order=None) -> dict:
     """Group triangles [N,3,3] into the two-level cluster tables (numpy,
-    cluster.py:114-204).  ``order``: "sah" (native SAH leaf order),
-    "morton", or an explicit permutation array."""
+    cluster.py:114-204).  ``order``: "sah" (native SAH leaf order; raises
+    if the native builder cannot be built), an explicit permutation
+    array, or None or any other string for the Morton order of AABB
+    centroids, as in the JAX package."""
     tris = np.asarray(triangles, np.float32)
     n = tris.shape[0]
-    if isinstance(order, str):
-        if order == "sah":
-            order = sah_order(tris)
-        elif order == "morton":
-            order = morton_order(tris)
-        else:
-            raise ValueError(f"bad cluster order {order!r}")
+    if isinstance(order, str) and order == "sah":
+        order = sah_order(tris)
+    elif order is None or isinstance(order, str):
+        order = morton_order(tris)
     order = np.asarray(order, np.int64)
 
     k2 = max(1, -(-n // T_CLUSTER))
@@ -226,11 +224,15 @@ def build_cluster_arrays(triangles: np.ndarray, order="sah") -> dict:
     )
 
 
-def build_clusters(triangles: np.ndarray, order="sah",
-                   device="cuda") -> ClusterScene:
-    """ClusterScene on ``device`` (see build_cluster_arrays)."""
+def build_clusters(triangles: np.ndarray, order=None, p1_budget: int = 0,
+                   p2_budget: int = 0, device="cuda") -> ClusterScene:
+    """ClusterScene on ``device`` (see build_cluster_arrays) with the pair
+    tracer's budgets; a budget of 0 means its default, 16*1024 or
+    64*1024."""
     device = resolve_device(device)
-    return clusters_from_numpy(build_cluster_arrays(triangles, order), device)
+    return clusters_from_numpy(build_cluster_arrays(triangles, order), device,
+                               p1_budget=p1_budget or 16 * 1024,
+                               p2_budget=p2_budget or 64 * 1024)
 
 
 def inv_dir(ray_d):
@@ -312,15 +314,22 @@ def _pad_cols(kv, maxc: int):
                      dim=1)
 
 
-def extract_candidates(hit, tnear, maxc: int):
-    """EXACT nearest-first extraction (the exact path of
-    _extract_candidates_topk, cluster.py:590-666).
+def extract_candidates(hit, tnear, maxc: int, exact: bool = False):
+    """Nearest-first extraction (_extract_candidates_topk,
+    cluster.py:590-666).
 
     (hit [R,K], tnear [R,K]) -> (cand [R,maxc] i32 column ids, -1 empty;
     ctn [R,maxc] f32 entry-t, BIG_T empty; overflow bool tensor).
     Rows that come back short (fewer kept than min(count, maxc)) are
-    poisoned: last cand -> 0 if empty, last ctn -> -BIG_T.  With exact
-    extraction that never happens, but the rule is kept as in JAX."""
+    poisoned: last cand -> 0 if empty, last ctn -> -BIG_T.  With
+    ``exact=False`` FULL rows (count > maxc) are poisoned too: the JAX
+    package's approximate top-k may swap a nearest key for a farther one
+    there unseen, so its certificate is not trusted.
+
+    The kept set is the maxc nearest keys in both modes: JAX's
+    ``approx_min_k`` returns that exact set on the CPU, where the two
+    packages are held against each other, so the modes differ only by
+    the poisoning."""
     id_bits = _id_bits(hit.shape[1])
     rem = torch.where(hit, pack_keys(tnear, id_bits), _DEAD)
     kv = _pad_cols(torch.sort(rem, dim=1).values, maxc)
@@ -330,7 +339,7 @@ def extract_candidates(hit, tnear, maxc: int):
     short = got < torch.clamp_max(count, maxc)
     over = short | (count > maxc)
     cand[:, -1] = torch.where(over & (cand[:, -1] < 0), 0, cand[:, -1])
-    ctn[:, -1] = torch.where(short, -BIG_T, ctn[:, -1])
+    ctn[:, -1] = torch.where(short if exact else over, -BIG_T, ctn[:, -1])
     return cand, ctn, over.any()
 
 
@@ -385,17 +394,19 @@ def _row_chunks(rows: int, ncols: int, group: int):
         yield lo, min(rows, lo + step)
 
 
-def candidate_clusters(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int):
-    """Per-ray nearest-first candidate cluster lists (cluster.py:728-743,
-    exact).  Returns (cand [B,maxc] i32, -1 empty; ctn [B,maxc] f32,
-    BIG_T empty; overflow bool tensor: some ray hit more than maxc boxes)."""
+def candidate_clusters(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int,
+                       exact: bool = False):
+    """Per-ray nearest-first candidate cluster lists (cluster.py:728-743).
+    Returns (cand [B,maxc] i32, -1 empty; ctn [B,maxc] f32, BIG_T empty;
+    overflow bool tensor: some ray hit more than maxc boxes).  ``exact``:
+    see extract_candidates; every list-tracer pass asks for it."""
     inv_d = inv_dir(ray_d)
     cands, ctns, ovf = [], [], torch.zeros((), dtype=torch.bool,
                                            device=ray_o.device)
     for lo, hi in _row_chunks(ray_o.shape[0], scene.num_clusters, 1):
         hit, tnear = dense_box_mask(scene.cl_box, ray_o[lo:hi], inv_d[lo:hi],
                                     t_lim[lo:hi])
-        c, t, o = extract_candidates(hit, tnear, maxc)
+        c, t, o = extract_candidates(hit, tnear, maxc, exact)
         cands.append(c)
         ctns.append(t)
         ovf = ovf | o
@@ -403,16 +414,19 @@ def candidate_clusters(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int):
 
 
 def candidate_clusters_grouped(scene: ClusterScene, ray_o, ray_d, t_lim,
-                               maxc: int, group: int):
+                               maxc: int, group: int, exact: bool = False,
+                               ray_cert: bool = False):
     """Per-BLOCK (``group`` consecutive rays) candidate lists: the union of
     the block's per-ray cluster hits, nearest-first by the block entry-t
-    (cluster.py:746-781, exact, with the membership certificate).
+    (cluster.py:746-781).
 
-    Returns (cand [B/group, maxc], ctn [B/group, maxc], overflow,
-    covered [B])."""
+    Returns (cand [B/group, maxc], ctn [B/group, maxc], overflow), plus
+    covered [B], the per-ray membership certificate, with ``ray_cert``,
+    which needs ``exact``."""
     B = ray_o.shape[0]
     if B % group:
         raise ValueError(f"{B} rays do not divide into blocks of {group}")
+    _check_ray_cert(exact, ray_cert)
     k2 = scene.num_clusters
     inv_d = inv_dir(ray_d)
     cands, ctns, covs = [], [], []
@@ -425,19 +439,31 @@ def candidate_clusters_grouped(scene: ClusterScene, ray_o, ray_d, t_lim,
         tn_g = torch.where(hit, torch.clamp_min(tnear, 0.0), BIG_T)
         del tnear
         tn_g = tn_g.view(nb, group, k2).amin(dim=1)
-        c, t, o = extract_candidates(hit_g, tn_g, maxc)
-        covs.append(membership_cert(hit, tn_g, c, t, group))
+        c, t, o = extract_candidates(hit_g, tn_g, maxc, exact)
+        if ray_cert:
+            covs.append(membership_cert(hit, tn_g, c, t, group))
         cands.append(c)
         ctns.append(t)
         ovf = ovf | o
-    return torch.cat(cands), torch.cat(ctns), ovf, torch.cat(covs)
+    if ray_cert:
+        return torch.cat(cands), torch.cat(ctns), ovf, torch.cat(covs)
+    return torch.cat(cands), torch.cat(ctns), ovf
+
+
+def _check_ray_cert(exact: bool, ray_cert: bool):
+    """The membership certificate reads the kept set as a key prefix,
+    which only exact extraction guarantees (the JAX package asserts it)."""
+    if ray_cert and not exact:
+        raise ValueError("ray_cert needs exact=True: the membership "
+                         "certificate holds for exact extraction only")
 
 
 def candidate_clusters_hier(scene: ClusterScene, ray_o, ray_d, t_lim,
-                            maxc: int, maxs: int, group: int,
-                            grouped: bool = False, ray_cert: bool = False):
+                            maxc: int, maxs: int = 12, group: int = 8,
+                            grouped: bool = False, exact: bool = False,
+                            ray_cert: bool = False):
     """Nearest-first candidate lists through a SUPERCLUSTER prefilter
-    (cluster.py:784-919, exact): per-ray lists [B, maxc], or with
+    (cluster.py:784-919): per-ray lists [B, maxc], or with
     ``grouped=True`` per-BLOCK union lists [B/group, maxc] (the block
     kernel's contract), built over C = maxs*64 prefiltered columns instead
     of all K2 clusters:
@@ -448,9 +474,9 @@ def candidate_clusters_hier(scene: ClusterScene, ray_o, ray_d, t_lim,
          extraction, extract_candidates_min);
       3. per-ray slab tests against those superclusters' 64 child boxes
          each ([B, C], from the gathered planar rows ``cl_box_rows``);
-      4. the exact extraction over the C local columns (per ray, or per
-         block on the union), local ids mapped back to global cluster ids
-         through the block's supercluster list.
+      4. extract_candidates (with ``exact``) over the C local columns (per
+         ray, or per block on the union), local ids mapped back to global
+         cluster ids through the block's supercluster list.
 
     Equal to the dense build wherever no block hits more than ``maxs``
     superclusters (entry-t up to the id-bit quantization).  A block that
@@ -458,19 +484,21 @@ def candidate_clusters_hier(scene: ClusterScene, ray_o, ray_d, t_lim,
     the JAX package: last ctn -> -BIG_T, last cand -> 0 where it was
     empty, so no certificate fires on them.
 
-    ``ray_cert=True`` (only with ``grouped=True``) also returns covered
-    [B], the per-ray membership certificate over the local columns, False
-    in every SC-overflow block.  Returns (cand, ctn, overflow[, covered]).
-    Runs in block-aligned row chunks; chunking changes no result."""
+    ``ray_cert=True`` (only with ``grouped=True`` and ``exact=True``) also
+    returns covered [B], the per-ray membership certificate over the local
+    columns, False in every SC-overflow block.  Returns (cand, ctn,
+    overflow[, covered]).  Runs in block-aligned row chunks; chunking
+    changes no result."""
     B = ray_o.shape[0]
     if B % group:
         raise ValueError(f"{B} rays do not divide into blocks of {group}")
     if ray_cert and not grouped:
         raise ValueError("ray_cert needs grouped=True: the membership "
                          "certificate is defined for block lists only")
+    _check_ray_cert(exact, ray_cert)
     inv_d = inv_dir(ray_d)
     outs = [_hier_rows(scene, ray_o[lo:hi], inv_d[lo:hi], t_lim[lo:hi],
-                       maxc, maxs, group, grouped, ray_cert)
+                       maxc, maxs, group, grouped, exact, ray_cert)
             for lo, hi in _row_chunks(B, maxs * S_CLUSTER, group)]
     cand = torch.cat([o[0] for o in outs])
     ctn = torch.cat([o[1] for o in outs])
@@ -481,7 +509,8 @@ def candidate_clusters_hier(scene: ClusterScene, ray_o, ray_d, t_lim,
 
 
 def _hier_rows(scene: ClusterScene, ray_o, inv_d, t_lim, maxc: int,
-               maxs: int, group: int, grouped: bool, ray_cert: bool):
+               maxs: int, group: int, grouped: bool, exact: bool,
+               ray_cert: bool):
     """candidate_clusters_hier on one block-aligned chunk of rays."""
     R = ray_o.shape[0]
     nb = R // group
@@ -513,7 +542,7 @@ def _hier_rows(scene: ClusterScene, ray_o, inv_d, t_lim, maxc: int,
         hit_b = hit2.view(nb, group, C).any(dim=1)
         tn_b = torch.where(hit2, torch.clamp_min(tnear, 0.0), BIG_T)
         tn_b = tn_b.view(nb, group, C).amin(dim=1)
-        cand_l, ctn, of2 = extract_candidates(hit_b, tn_b, maxc)
+        cand_l, ctn, of2 = extract_candidates(hit_b, tn_b, maxc, exact)
         if ray_cert:
             covered = membership_cert(hit2.view(R, C), tn_b, cand_l, ctn,
                                       group)
@@ -523,7 +552,7 @@ def _hier_rows(scene: ClusterScene, ray_o, inv_d, t_lim, maxc: int,
     else:
         # 4: per-ray lists over the local columns
         cand_l, ctn, of2 = extract_candidates(hit2.view(R, C),
-                                              tnear.view(R, C), maxc)
+                                              tnear.view(R, C), maxc, exact)
         sc_list = scand.repeat_interleave(group, dim=0)
         row_of = sc_of.repeat_interleave(group)
     slot = torch.clamp_min(cand_l, 0)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from sycl_ray_tracing_tpu_torch.ops.safe_math import luminance, safe_asin
+from sycl_ray_tracing_tpu_torch.utils.device import resolve_device
 
 COL_BLK = 32  # column-CDF block width for the two-level inversion
 
@@ -37,19 +38,19 @@ class EnvMapSampler(NamedTuple):
     cond_fine: torch.Tensor   # [H*NB, COL_BLK] blocked cdf, pad=+inf
 
 
-def build_sampler(image, device) -> EnvMapSampler:
+def build_sampler(image, device="cuda") -> EnvMapSampler:
     """Build the separable CDF tables on the host, then move them to
     ``device``.  A torch ``image`` stays the sampler's image, graph and
     device included, so texel gradients reach it; its tables are built
     from its detached values (one host copy per build) on the image's
-    device."""
+    device, whatever ``device`` says."""
     if isinstance(image, torch.Tensor):
         tables = _host_tables(image.detach().cpu().numpy())
         return EnvMapSampler(image=image, **{
             f: torch.tensor(v, device=image.device) for f, v in tables.items()})
     img_np = np.asarray(image, np.float32)
     return sampler_from_numpy(dict(image=img_np, **_host_tables(img_np)),
-                              device)
+                              resolve_device(device))
 
 
 def _host_tables(img_np: np.ndarray) -> dict:

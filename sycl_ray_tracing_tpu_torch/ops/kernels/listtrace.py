@@ -463,15 +463,19 @@ def _run_once(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int, any_hit,
     if g:
         tris = _tiles_with_dummy(scene)
         args = (scene, rg[:, 0:3], rg[:, 3:6], rg[:, 6], maxc)
+        # every pass asks for exact extraction (JAX _run passes exact=True,
+        # listtrace.py:746, :780): full rows keep their certificates
         if share and big:
             cand, ctn, _of, covered = candidate_clusters_hier(
-                *args, maxs, rb, grouped=True, ray_cert=True)
+                *args, maxs, rb, grouped=True, exact=True, ray_cert=True)
         elif share:
-            cand, ctn, _of, covered = candidate_clusters_grouped(*args, rb)
+            cand, ctn, _of, covered = candidate_clusters_grouped(
+                *args, rb, exact=True, ray_cert=True)
         elif big:
-            cand, ctn, _of = candidate_clusters_hier(*args, maxs, rb)
+            cand, ctn, _of = candidate_clusters_hier(*args, maxs, rb,
+                                                     exact=True)
         else:
-            cand, ctn, _of = candidate_clusters(*args)
+            cand, ctn, _of = candidate_clusters(*args, exact=True)
         cand_k = torch.where(cand >= 0, cand, k2).to(torch.int32)
         if share:
             at, ar, _stop = block_tiles(cand_k.contiguous(), ctn, rg, tris,

@@ -52,8 +52,8 @@ def workload(device, n_tris: int = N_TRIS, n_rays: int = B) -> dict:
     d = dn / np.linalg.norm(dn, axis=-1, keepdims=True)
     o, d = (torch.as_tensor(x, device=device) for x in (o, d))
     tl = torch.full((n_rays,), BIG_T, dtype=torch.float32, device=device)
-    cand, ctn, _of, _cov = candidate_clusters_grouped(cs, o, d, tl, MAXC,
-                                                      lt.RB_SHARE)
+    cand, ctn, _of = candidate_clusters_grouped(cs, o, d, tl, MAXC,
+                                                lt.RB_SHARE, exact=True)
     g, k2 = cand.shape[0], cs.num_clusters
     lists = {"real union lists": (cand, ctn)}
     cycle = torch.arange(MAXC, dtype=torch.int32, device=device) % k2

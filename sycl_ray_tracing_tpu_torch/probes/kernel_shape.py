@@ -47,9 +47,9 @@ def workload(scene) -> dict:
                                  scene.device)
     perm = torch.argsort(lt._ray_sort_key(cs, o, d), stable=True)
     o, d = o[perm], d[perm]
-    cand, ctn, _of = candidate_clusters(cs, o, d, tl, LIST_MAXC)
-    candg, ctng, _of, _cov = candidate_clusters_grouped(
-        cs, o, d, tl, SHARE_MAXC, lt.RB_SHARE)
+    cand, ctn, _of = candidate_clusters(cs, o, d, tl, LIST_MAXC, exact=True)
+    candg, ctng, _of = candidate_clusters_grouped(
+        cs, o, d, tl, SHARE_MAXC, lt.RB_SHARE, exact=True)
     return dict(k2=cs.num_clusters, rays=pack_rays(o, d, tl), cand=cand,
                 ctn=ctn, candg=candg, ctng=ctng,
                 tris=lt._tiles_with_dummy(cs))

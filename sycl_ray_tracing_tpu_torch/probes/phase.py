@@ -69,13 +69,14 @@ def run(scene, reps: int = 5):
     o_s, d_s = o[perm], d[perm]
 
     for maxc in (16, 32, 48):
-        ms = cuda_ms(lambda: candidate_clusters(cs, o_s, d_s, tl, maxc), reps)
+        ms = cuda_ms(lambda: candidate_clusters(cs, o_s, d_s, tl, maxc,
+                                                exact=True), reps)
         print(f"cand build maxc={maxc:3d}:          {ms:8.3f} ms", flush=True)
-    ms = cuda_ms(lambda: candidate_clusters_grouped(cs, o_s, d_s, tl, 48,
-                                                    lt.RB_SHARE), reps)
+    ms = cuda_ms(lambda: candidate_clusters_grouped(
+        cs, o_s, d_s, tl, 48, lt.RB_SHARE, exact=True, ray_cert=True), reps)
     print(f"cand build shared mc=48:      {ms:8.3f} ms", flush=True)
 
-    cand, ctn, _of = candidate_clusters(cs, o_s, d_s, tl, 48)
+    cand, ctn, _of = candidate_clusters(cs, o_s, d_s, tl, 48, exact=True)
     nvalid = (cand >= 0).sum(dim=1).float()
     q = torch.quantile(nvalid, torch.tensor([0.5, 0.9, 0.99], device=dev))
     print(f"  per-ray candidates: mean {float(nvalid.mean()):.1f} "

@@ -50,7 +50,9 @@ class RenderMetrics:
     counters: Dict[str, float] = field(default_factory=dict)
 
     @contextlib.contextmanager
-    def phase(self, name: str):
+    def phase(self, name: str, result=None):
+        """Time the block under ``name``.  ``result`` is accepted and
+        ignored, as in the JAX package."""
         t0 = time.perf_counter()
         try:
             yield

@@ -81,6 +81,38 @@ def test_cluster_tables_identical(tris, order):
                                       err_msg=f)
 
 
+@pytest.mark.parametrize("order", ["default", None, "other"])
+def test_build_clusters_default_is_morton(tris, order):
+    """No order, None and any string but "sah" mean Morton order in both
+    packages (which does not depend on the host): every table equal to
+    JC.build_clusters(tris)'s."""
+    want = JC.build_clusters(tris)
+    kw = {} if order == "default" else {"order": order}
+    got = PC.build_clusters(tris, device="cpu", **kw)
+    arrays = PC.build_cluster_arrays(tris, **kw)
+    for f in PC.CLUSTER_FIELDS:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)), err_msg=f)
+        np.testing.assert_array_equal(arrays[f], np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    np.testing.assert_array_equal(
+        got.cl_tri_idx.numpy().reshape(-1)[:tris.shape[0]],
+        PC.morton_order(tris))
+
+
+@pytest.mark.parametrize("budgets", [(0, 0), (4096, 8192), (0, 8192)])
+def test_build_clusters_budgets(budgets):
+    """p1_budget / p2_budget as the JAX package takes them: 0 means
+    16*1024 / 64*1024."""
+    small = dragon_standin(500)
+    p1, p2 = budgets
+    want = JC.build_clusters(small, p1_budget=p1, p2_budget=p2)
+    got = PC.build_clusters(small, p1_budget=p1, p2_budget=p2, device="cpu")
+    assert (got.p1_budget, got.p2_budget) == (want.p1_budget, want.p2_budget)
+    assert got.p1_budget == (p1 or 16 * 1024)
+    assert got.p2_budget == (p2 or 64 * 1024)
+
+
 def test_scene_tables_and_scene_from_numpy():
     """make_scene + build_acceleration give the JAX package's areas,
     emitters and slot_packed table for the same cluster order, and
@@ -143,11 +175,64 @@ def test_candidate_clusters_identical(tris, maxc):
     jout = JC.candidate_clusters(jcs, jnp.asarray(o), jnp.asarray(d),
                                  jnp.asarray(tl), maxc, exact=True)
     pout = PC.candidate_clusters(pcs, torch.tensor(o), torch.tensor(d),
-                                 torch.tensor(tl), maxc)
+                                 torch.tensor(tl), maxc, exact=True)
     for name, a, b in zip(("cand", "ctn", "overflow"), jout, pout):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
     if maxc == 4:
         assert bool(pout[2])     # the small depth really overflows
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("maxc", [4, 16, 128])
+def test_candidate_clusters_exact_flag(tris, maxc, exact):
+    """Both values of ``exact`` against the JAX package's (its default,
+    False, included): cand, ctn and overflow identical.  exact=False
+    poisons every FULL row's certificate too (count > maxc), which the
+    small depth really reaches; the lists themselves are the same."""
+    jcs, pcs = _both_clusters(tris)
+    o, d, tl = _slab_inputs(np.random.default_rng(200 + maxc), 192, 3e38)
+    tl[::5] = 1.5
+    tl[::7] = -3e38
+    jargs = (jcs, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tl), maxc)
+    pargs = (pcs, torch.tensor(o), torch.tensor(d), torch.tensor(tl), maxc)
+    jout = JC.candidate_clusters(*jargs, **({"exact": True} if exact else {}))
+    pout = PC.candidate_clusters(*pargs, **({"exact": True} if exact else {}))
+    for name, a, b in zip(("cand", "ctn", "overflow"), jout, pout):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
+    hit, _tn = PC.dense_box_mask(pcs.cl_box, pargs[1], PC.inv_dir(pargs[2]),
+                                 pargs[3])
+    full = hit.sum(dim=1) > maxc
+    poisoned = pout[1][:, -1] == -BIG_T
+    assert torch.equal(poisoned, full & (not exact))
+    if maxc == 4:
+        assert int(full.sum()) >= 10
+    other = PC.candidate_clusters(*pargs, exact=not exact)
+    assert torch.equal(other[0], pout[0])
+    assert torch.equal(other[1][:, :-1], pout[1][:, :-1])
+
+
+@pytest.mark.parametrize("exact,ray_cert", [(False, False), (True, False),
+                                            (True, True)])
+def test_candidate_clusters_grouped_modes(tris, exact, ray_cert):
+    """The grouped build's three modes against the JAX package's: the
+    tuple's length (covered only with ray_cert) and every array; ray_cert
+    without exact is refused, as the JAX package asserts."""
+    jcs, pcs = _both_clusters(tris)
+    o, d, tl = _slab_inputs(np.random.default_rng(300), 256, 3e38)
+    tl[::3] = 2.0
+    tl[::11] = -3e38
+    kw = dict(exact=exact, ray_cert=ray_cert) if exact else {}
+    jout = JC.candidate_clusters_grouped(
+        jcs, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tl), 8, 32, **kw)
+    pargs = (pcs, torch.tensor(o), torch.tensor(d), torch.tensor(tl), 8, 32)
+    pout = PC.candidate_clusters_grouped(*pargs, **kw)
+    assert len(pout) == len(jout) == (4 if ray_cert else 3)
+    for name, a, b in zip(("cand", "ctn", "overflow", "covered"), jout, pout):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
+    # maxc 8 fills unions: without exact their certificates are poisoned
+    assert bool((pout[1][:, -1] == -BIG_T).any()) == (not exact)
+    with pytest.raises(ValueError, match="exact"):
+        PC.candidate_clusters_grouped(*pargs, ray_cert=True)
 
 
 @pytest.mark.parametrize("maxc", [8, 32, 128])
@@ -160,7 +245,9 @@ def test_candidate_clusters_grouped_identical(tris, maxc):
         jcs, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tl), maxc, 32,
         exact=True, ray_cert=True)
     pout = PC.candidate_clusters_grouped(
-        pcs, torch.tensor(o), torch.tensor(d), torch.tensor(tl), maxc, 32)
+        pcs, torch.tensor(o), torch.tensor(d), torch.tensor(tl), maxc, 32,
+        exact=True, ray_cert=True)
+    assert len(pout) == len(jout) == 4
     for name, a, b in zip(("cand", "ctn", "overflow", "covered"), jout, pout):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
     if maxc == 8:
@@ -175,9 +262,10 @@ def test_grouped_build_chunking_is_exact(tris, monkeypatch):
     _, pcs = _both_clusters(tris)
     o, d, tl = _slab_inputs(np.random.default_rng(5), 512, 3e38)
     args = (pcs, torch.tensor(o), torch.tensor(d), torch.tensor(tl), 16, 32)
-    whole = PC.candidate_clusters_grouped(*args)
+    whole = PC.candidate_clusters_grouped(*args, exact=True, ray_cert=True)
     monkeypatch.setattr(PC, "_CHUNK_ELEMS", 64 * pcs.num_clusters)
-    chunked = PC.candidate_clusters_grouped(*args)
+    chunked = PC.candidate_clusters_grouped(*args, exact=True, ray_cert=True)
+    assert len(whole) == len(chunked) == 4
     for a, b in zip(whole, chunked):
         assert torch.equal(a, b)
 
@@ -187,7 +275,7 @@ def test_extraction_key_order():
     key grid, empty slots (-1, BIG_T), and the overflow flag."""
     hit = torch.tensor([[True, False, True, True], [False] * 4])
     tnear = torch.tensor([[3.0, 0.0, 1.0, 2.0], [0.0] * 4])
-    cand, ctn, of = PC.extract_candidates(hit, tnear, 2)
+    cand, ctn, of = PC.extract_candidates(hit, tnear, 2, exact=True)
     assert cand.tolist() == [[2, 3], [-1, -1]]
     assert bool(of)                          # row 0 has 3 hits > maxc 2
     assert (ctn[0] <= torch.tensor([1.0, 2.0])).all()
@@ -278,7 +366,7 @@ def test_candidate_clusters_hier_identical(hier_mesh, grouped, maxs):
         ray_cert=grouped)
     pout = PC.candidate_clusters_hier(
         pcs, torch.tensor(o), torch.tensor(d), torch.tensor(tl), maxc, maxs,
-        group, grouped=grouped, ray_cert=grouped)
+        group, grouped=grouped, exact=True, ray_cert=grouped)
     assert len(pout) == len(jout)
     for name, a, b in zip(("cand", "ctn", "overflow", "covered"), jout, pout):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
@@ -300,8 +388,8 @@ def test_hier_matches_dense_without_sc_overflow(hier_mesh):
     differently), and ctn slot by slot within the id-bit quantization."""
     _jcs, pcs, (o, d, tl) = hier_mesh
     args = (pcs, torch.tensor(o), torch.tensor(d), torch.tensor(tl), 32)
-    hc, ht, hof = PC.candidate_clusters_hier(*args, 4, 8)
-    dc, dt, dof = PC.candidate_clusters(*args)
+    hc, ht, hof = PC.candidate_clusters_hier(*args, 4, 8, exact=True)
+    dc, dt, dof = PC.candidate_clusters(*args, exact=True)
     assert bool(hof) == bool(dof)
     assert torch.equal((hc >= 0).sum(dim=1), (dc >= 0).sum(dim=1))
     fits = dc[:, -1] < 0
@@ -311,6 +399,28 @@ def test_hier_matches_dense_without_sc_overflow(hier_mesh):
     assert torch.allclose(ht[live], dt[live], rtol=2.0 ** -11, atol=0.0)
     # the bundle's rows have no ties: identical lists
     assert torch.equal(hc[:128], dc[:128])
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("grouped", [False, True])
+def test_candidate_clusters_hier_defaults(hier_mesh, grouped, exact):
+    """The supercluster build at the JAX package's defaults (maxs 12,
+    group 8, and exact False unless asked), per ray and grouped (with the
+    membership certificate where exact), against the JAX package's."""
+    jcs, pcs, (o, d, tl) = hier_mesh
+    kw = dict(grouped=grouped)
+    if exact:
+        kw.update(exact=True, ray_cert=grouped)
+    jout = JC.candidate_clusters_hier(
+        jcs, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tl), 16, **kw)
+    pout = PC.candidate_clusters_hier(
+        pcs, torch.tensor(o), torch.tensor(d), torch.tensor(tl), 16, **kw)
+    assert len(pout) == len(jout) == (4 if grouped and exact else 3)
+    for name, a, b in zip(("cand", "ctn", "overflow", "covered"), jout, pout):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=name)
+    assert pout[0].shape[0] == (o.shape[0] // 8 if grouped else o.shape[0])
+    # maxs 12 keeps all 4 superclusters: only full rows can be poisoned
+    assert bool((pout[1][:, -1] == -BIG_T).any()) == (not exact)
 
 
 def test_hier_ray_cert_needs_grouped(hier_mesh):
@@ -327,10 +437,10 @@ def test_hier_build_chunking_is_exact(hier_mesh, monkeypatch, grouped):
     _jcs, pcs, (o, d, tl) = hier_mesh
     args = (pcs, torch.tensor(o), torch.tensor(d), torch.tensor(tl), 16, 2,
             32)
-    whole = PC.candidate_clusters_hier(*args, grouped=grouped,
+    whole = PC.candidate_clusters_hier(*args, grouped=grouped, exact=True,
                                        ray_cert=grouped)
     monkeypatch.setattr(PC, "_CHUNK_ELEMS", 64 * 2 * PC.S_CLUSTER)
-    chunked = PC.candidate_clusters_hier(*args, grouped=grouped,
+    chunked = PC.candidate_clusters_hier(*args, grouped=grouped, exact=True,
                                          ray_cert=grouped)
     for a, b in zip(whole, chunked):
         assert torch.equal(a, b)

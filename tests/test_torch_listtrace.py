@@ -350,7 +350,7 @@ def test_poisoned_last_slot_is_not_walked(big_mesh):
     o, d = _rays(rng, B, -2.0, 2.0)
     o, d = torch.tensor(o), torch.tensor(d)
     cand, ctn, _of = PC.candidate_clusters_hier(
-        pcs, o, d, torch.full((B,), BIG_T), maxc, 1, 8)
+        pcs, o, d, torch.full((B,), BIG_T), maxc, 1, 8, exact=True)
     k2 = pcs.num_clusters
     cand = torch.where(cand >= 0, cand, k2).to(torch.int32)
     real = torch.where(cand[:, :-1] != k2, torch.arange(1, maxc), 0).amax(1)

@@ -315,8 +315,9 @@ def wavefront():
     tl[::5] = 1.0                                 # some short limits
     perm = torch.argsort(PL._ray_sort_key(cs, o, d), stable=True)
     o, d, tl = o[perm], d[perm], tl[perm]
-    cand, ctn, _ = PC.candidate_clusters(cs, o, d, tl, 12)
-    candg, ctng, _, _ = PC.candidate_clusters_grouped(cs, o, d, tl, 16, 32)
+    cand, ctn, _ = PC.candidate_clusters(cs, o, d, tl, 12, exact=True)
+    candg, ctng, _, _ = PC.candidate_clusters_grouped(
+        cs, o, d, tl, 16, 32, exact=True, ray_cert=True)
     k2 = cs.num_clusters
     return dict(k2=k2, rays=pack_rays(o, d, tl), cand=cand, ctn=ctn,
                 candg=candg, ctng=ctng, tris=PL._tiles_with_dummy(cs))
@@ -491,8 +492,9 @@ def guarded():
     o, d, tl = (torch.tensor(x) for x in (o, d, tl))
     perm = torch.argsort(PL._ray_sort_key(cs, o, d), stable=True)
     o, d, tl, ah = o[perm], d[perm], tl[perm], torch.tensor(ah)[perm]
-    cand, ctn, _, _ = PC.candidate_clusters_grouped(cs, o, d, tl, 48, 32)
-    lcand, lctn, _ = PC.candidate_clusters(cs, o, d, tl, 48)
+    cand, ctn, _, _ = PC.candidate_clusters_grouped(
+        cs, o, d, tl, 48, 32, exact=True, ray_cert=True)
+    lcand, lctn, _ = PC.candidate_clusters(cs, o, d, tl, 48, exact=True)
     rays = torch.cat([o, d, tl[:, None], ah[:, None].float()], dim=1)
     return dict(k2=cs.num_clusters, rays=rays.contiguous(), cand=cand,
                 ctn=ctn, lcand=lcand, lctn=lctn,

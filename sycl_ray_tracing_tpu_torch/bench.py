@@ -3,7 +3,7 @@ bench.py):
 
     python -m sycl_ray_tracing_tpu_torch.bench [--sections 1,2,3,4,5]
         [--repeats 3] [--steady 8] [--cornell data/OBJs/cornell_pbr.obj]
-        [--weak-ranks 8] [--history PATH] [--profile] [--small]
+        [--weak-ranks 8] [--history PATH] [--small]
         [--device cuda|cpu]
 
 The JAX bench's sections (bench.py:165-316), with its names and rules:
@@ -56,9 +56,7 @@ It runs on the card unless given --device cpu.  Without a card it exits 3
 exit code is 0 only if dragon_fwd_mrays was measured.  Nothing is written
 unless --history PATH is given (the JAX bench appends to the committed
 bench_history.jsonl).  --small is the tests' size, never a number for the
-card.  --profile adds one frame a section under torch.profiler (device
-time, its share of that frame's wall time and of the fastest timed
-call's, top device ops).
+card.
 """
 
 from __future__ import annotations
@@ -96,7 +94,6 @@ CORNELL_OBJ = "data/OBJs/cornell_pbr.obj"
 NO_CARD = 3            # the JAX bench's exit code for an unreachable chip
 WEAK_TIMEOUT = 600     # seconds for all ranks of section 5 (bench.py:310)
 WEAK_THREADS = 1       # torch threads of each section 5 rank
-TOP_OPS = 5            # device ops a profiled section line names
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,27 +214,6 @@ def _record_timed(line: dict, first, times, launches):
     line["launches"] = launches[times.index(min(times))]
 
 
-def _profile(line: dict, fn, device):
-    """One more call of ``fn`` under torch.profiler (probes/frame.py):
-    the device time of all CUDA activity, its share of that call's wall
-    time (``busy``) and of the fastest timed call's (``busy_of_fastest``),
-    and the device ops with the most time."""
-    from sycl_ray_tracing_tpu_torch.probes.frame import profile
-
-    if device.type != "cuda":
-        raise RuntimeError("--profile reads the card's activity: it needs "
-                           "--device cuda")
-    prof = profile(fn)
-    line["device_ms"] = prof["device_ms"]
-    line["busy"] = (prof["device_ms"] / prof["wall_ms"]
-                    if prof["wall_ms"] else 0.0)
-    # the profiler slows the frame it records: the same device time over
-    # the fastest unprofiled call
-    line["busy_of_fastest"] = prof["device_ms"] / (min(line["times_s"]) * 1e3)
-    line["top_device_ops"] = [[ms, n, name[:120]]
-                              for ms, n, name in prof["top"][:TOP_OPS]]
-
-
 def _build_dragon(run: Run, tris: int, line: dict):
     t0 = time.perf_counter()
     scene = dragon_scene(tris, with_sky=True, sky_res=run.size.sky_res,
@@ -278,9 +254,6 @@ def dragon_fwd(run: Run, line: dict):
     dt_st = (time.perf_counter() - t0) / n
     line["steady_frame_s"] = dt_st
     line["dragon_fwd_mrays_steady"] = run.rays / dt_st / 1e6
-    if run.args.profile:
-        _profile(line, lambda: frame(run.dragon, cam, cfg, prng_key(0)),
-                 run.device)
 
 
 def dragon_fwd_bwd(run: Run, line: dict):
@@ -298,9 +271,6 @@ def dragon_fwd_bwd(run: Run, line: dict):
     dt = min(times)
     line["dragon_fwd_bwd_mrays"] = run.rays / dt / 1e6
     line["dragon_fwd_bwd_ms"] = dt * 1e3
-    if run.args.profile:
-        _profile(line, lambda: value_and_grad(run.dragon, cam, cfg,
-                                              prng_key(0)), run.device)
 
 
 def dragon870k_fwd(run: Run, line: dict):
@@ -319,8 +289,6 @@ def dragon870k_fwd(run: Run, line: dict):
     cam, cfg, dt = _forward_section(run, line, big, "dragon870k")
     line["dragon870k_fwd_mrays"] = run.rays / dt / 1e6
     line["dragon870k_fwd_ms"] = dt * 1e3
-    if run.args.profile:
-        _profile(line, lambda: frame(big, cam, cfg, prng_key(0)), run.device)
 
 
 def _cornell_path(run: Run) -> str:
@@ -345,9 +313,6 @@ def cornell_fwd(run: Run, line: dict):
         raise RuntimeError("broken cornell render")
     w, h, spp, bounces = run.size.cornell
     line["cornell_fwd_mrays"] = w * h * spp * bounces / min(times) / 1e6
-    if run.args.profile:
-        _profile(line, lambda: frame(scene, cam, cfg, prng_key(0)),
-                 run.device)
 
 
 def _free_port() -> int:
@@ -556,8 +521,6 @@ def _parse(argv):
                     help="gloo ranks of section 5's many-rank run")
     ap.add_argument("--history", default=None,
                     help="append this run's results to this file")
-    ap.add_argument("--profile", action="store_true",
-                    help="one more frame a section under torch.profiler")
     args = ap.parse_args(argv)
     args.sections = sorted({int(s) for s in args.sections.split(",")})
     if not set(args.sections) <= set(SECTIONS) or args.repeats < 1 \

@@ -84,11 +84,10 @@ def main(argv=None, device="cuda") -> int:
     # "auto" builds clusters: it resolves to the list tracer (or the
     # cluster pair tracer past its cluster cap), pathtracer._resolve_backend
     if config.intersect in ("cluster", "list", "auto"):
-        t0 = time.time()
         hint = config.tile_rays or config.width * config.height
-        scene = scene.build_acceleration(num_rays_hint=hint)
-        metrics.timers["accel_build"] = time.time() - t0
-        print(f"cluster build: {(time.time() - t0) * 1000:.0f}ms")
+        with metrics.phase("accel_build"):
+            scene = scene.build_acceleration(num_rays_hint=hint)
+        print(f"cluster build: {metrics.timers['accel_build'] * 1000:.0f}ms")
 
     camera = PRESETS[config.camera](device)
     print(f"[{config.width}x{config.height}]: {config.samples} samples\n")
@@ -154,16 +153,15 @@ def main(argv=None, device="cuda") -> int:
         hdr = pr.run(checkpoint_path=config.checkpoint, on_batch=_tick)
         return hdr, {"overflow": pr.state.overflow}
 
-    t0 = time.time()
-    if config.checkpoint:
-        hdr, aux = render_checkpointed(scene)
-    else:
-        hdr, aux = render(scene, camera, key)
-    metrics.timers["render"] = time.time() - t0
+    with metrics.phase("render"):
+        if config.checkpoint:
+            hdr, aux = render_checkpointed(scene)
+        else:
+            hdr, aux = render(scene, camera, key)
     metrics.count("rays",
                   config.width * config.height * config.samples
                   * config.bounces)
-    print(f"{(time.time() - t0) * 1000:.0f}ms")
+    print(f"{metrics.timers['render'] * 1000:.0f}ms")
 
     # Traversal overflow means some ray's answer is UNCERTIFIED (list
     # backend: any(~resolved & live); cluster backend: pair budget

@@ -80,6 +80,7 @@ from sycl_ray_tracing_tpu_torch.ops.sampling import (
     triangle_area,
 )
 from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
+from sycl_ray_tracing_tpu_torch.utils.metrics import host_read, span
 
 # block-shared list kernel for the (coherent) primary rays
 PRIMARY_SHARE = True
@@ -433,6 +434,11 @@ def trace(scene: Scene, ray_o, ray_d, key, bounces: int,
     has_env = scene.env_map is not None
 
     def bounce_body(bounce, ray_o, ray_d, throughput, radiance, alive):
+        with span("trace.bounce", bounce=bounce, width=B):
+            return _bounce_body(bounce, ray_o, ray_d, throughput, radiance,
+                                alive)
+
+    def _bounce_body(bounce, ray_o, ray_d, throughput, radiance, alive):
         of = []
 
         def closest(q, o, d, mask):
@@ -596,27 +602,40 @@ def trace_shared(scene: Scene, ray_o, ray_d, key, bounces: int,
                 scene.materials.emission[scene.material_indices.long()],
                 scene.tri_areas[:, None]], dim=1)        # [N,4]
 
-    mid0 = torch.zeros((B,), dtype=torch.int32, device=dev)
-    if fuse:
-        res0, ovf0 = tape.query(-1, cs, [(ray_o, ray_d, None, None, False)],
-                                share=PRIMARY_SHARE, impl=impl)
-        prim0, mid0, _ = slot_lookup(res0[0][1])
-        hit0 = finalize_hit(ray_o, ray_d, scene.triangles, prim0)
-        if n_sph > 0:
-            s0 = _sphere_hits(scene, ray_o, ray_d)
-            mid0 = sphere_merge_mid(hit0, mid0, s0)
-            hit0 = merge_hits(hit0, s0)
-    else:
-        of0 = []
-        hit0 = intersect_scene(scene, ray_o, ray_d, backend, of0,
-                               list_share=PRIMARY_SHARE, impl=impl,
-                               tape=tape, key=(-1, 0))
-        ovf0 = _any_overflow(of0, dev)
+    with span("trace.primary", width=B):
+        mid0 = torch.zeros((B,), dtype=torch.int32, device=dev)
+        if fuse:
+            res0, ovf0 = tape.query(-1, cs,
+                                    [(ray_o, ray_d, None, None, False)],
+                                    share=PRIMARY_SHARE, impl=impl)
+            prim0, mid0, _ = slot_lookup(res0[0][1])
+            hit0 = finalize_hit(ray_o, ray_d, scene.triangles, prim0)
+            if n_sph > 0:
+                s0 = _sphere_hits(scene, ray_o, ray_d)
+                mid0 = sphere_merge_mid(hit0, mid0, s0)
+                hit0 = merge_hits(hit0, s0)
+        else:
+            of0 = []
+            hit0 = intersect_scene(scene, ray_o, ray_d, backend, of0,
+                                   list_share=PRIMARY_SHARE, impl=impl,
+                                   tape=tape, key=(-1, 0))
+            ovf0 = _any_overflow(of0, dev)
+        # hoisted primary-miss env radiance (reference :146-158)
+        radiance = torch.zeros((B, 3), dtype=torch.float32, device=dev)
+        if has_env:
+            sky0 = env_ops.eval_direction(scene.env_map.image, ray_d)
+            radiance = torch.where((~hit0.hit)[:, None], sky0, 0.0)
 
     def bounce_core(bounce, ray_o, ray_d, hit, mid, throughput, radiance,
                     alive):
         """One bounce over a wavefront of any width (pathtracer.py:
         683-918).  Returns the updated state and the bounce's overflow."""
+        with span("trace.bounce", bounce=bounce, width=ray_o.shape[0]):
+            return _bounce_core(bounce, ray_o, ray_d, hit, mid, throughput,
+                                radiance, alive)
+
+    def _bounce_core(bounce, ray_o, ray_d, hit, mid, throughput, radiance,
+                     alive):
         W = ray_o.shape[0]
         live_hit = alive & hit.hit
         if fuse:
@@ -783,11 +802,6 @@ def trace_shared(scene: Scene, ray_o, ray_d, key, bounces: int,
         ray_d = torch.where(cont_ok[:, None], wi_s, ray_d)
         return ray_o, ray_d, h2, mid2, throughput, radiance, cont_ok, ovf
 
-    # hoisted primary-miss env radiance (reference :146-158)
-    radiance = torch.zeros((B, 3), dtype=torch.float32, device=dev)
-    if has_env:
-        sky0 = env_ops.eval_direction(scene.env_map.image, ray_d)
-        radiance = torch.where((~hit0.hit)[:, None], sky0, 0.0)
     throughput = torch.ones((B, 3), dtype=torch.float32, device=dev)
     alive = torch.ones((B,), dtype=torch.bool, device=dev)
     overflow = ovf0
@@ -811,11 +825,14 @@ def trace_shared(scene: Scene, ray_o, ray_d, key, bounces: int,
                      ordmap=torch.arange(B, device=dev),
                      **{f"hit_{f}": getattr(hit, f) for f in _HIT_FIELDS})
         for bounce in range(bounces):
-            perm = torch.argsort((~state["alive"]).to(torch.int32),
-                                 stable=True)
-            state = {k: v.index_select(0, perm) for k, v in state.items()}
-            w = tape.width(bounce, lambda: next(
-                x for x in widths if x >= int(state["alive"].sum())))
+            with span("bounce.compact", bounce=bounce):
+                perm = torch.argsort((~state["alive"]).to(torch.int32),
+                                     stable=True)
+                state = {k: v.index_select(0, perm)
+                         for k, v in state.items()}
+                w = tape.width(bounce, lambda: next(
+                    x for x in widths
+                    if x >= host_read("alive", state["alive"].sum())))
             h = Hit(**{f: state[f"hit_{f}"][:w] for f in _HIT_FIELDS})
             out = _maybe_checkpoint(
                 ckpt, bounce_core, bounce, state["ray_o"][:w],
@@ -893,14 +910,9 @@ def render_rays(scene: Scene, camera: Camera, px, py, width: int,
     return accum / samples
 
 
-def render(scene: Scene, camera: Camera, config: RenderConfig, key,
-           with_aux: bool = False, impl=None, on_tile=None):
-    """Full-frame render -> linear HDR image [H,W,3] (pathtracer.py:
-    1131-1202).  Row 0 is the BOTTOM of the image.  ``with_aux=True`` also
-    returns {"overflow": bool}: True when some ray's answer is not
-    certified exact.  Tiles of ``config.tile_rays`` rays use the per-tile
-    key fold_in(key, tile_index); ``on_tile(tile_index, n_tiles, hdr)`` is
-    called after each tile's render (the CLI's progress lines)."""
+def _render_image(scene: Scene, camera: Camera, config: RenderConfig, key,
+                  impl, on_tile):
+    """``render``'s image and its overflow flag as a tensor."""
     W, H = config.width, config.height
     dev = scene.device
     kw = dict(samples=config.samples, bounces=config.bounces,
@@ -936,15 +948,29 @@ def render(scene: Scene, camera: Camera, config: RenderConfig, key,
             parts, overflow = [], torch.zeros((), dtype=torch.bool, device=dev)
             for tidx in range(n_tiles):
                 sl = slice(tidx * tile, (tidx + 1) * tile)
-                h, a = render_rays(scene, camera, px[sl], py[sl], W, H,
-                                   fold_in(key, tidx), **kw)
+                with span("render.tile", tile=tidx):
+                    h, a = render_rays(scene, camera, px[sl], py[sl], W,
+                                       H, fold_in(key, tidx), **kw)
                 parts.append(h)
                 overflow = overflow | a["overflow"]
                 if on_tile is not None:
                     on_tile(tidx, n_tiles, h)
             hdr, aux = torch.cat(parts)[:B], {"overflow": overflow}
         img = hdr.reshape(H, W, 3)
-    aux = {"overflow": bool(aux["overflow"])}
+    return img, aux
+
+
+def render(scene: Scene, camera: Camera, config: RenderConfig, key,
+           with_aux: bool = False, impl=None, on_tile=None):
+    """Full-frame render -> linear HDR image [H,W,3] (pathtracer.py:
+    1131-1202).  Row 0 is the BOTTOM of the image.  ``with_aux=True`` also
+    returns {"overflow": bool}: True when some ray's answer is not
+    certified exact.  Tiles of ``config.tile_rays`` rays use the per-tile
+    key fold_in(key, tile_index); ``on_tile(tile_index, n_tiles, hdr)`` is
+    called after each tile's render (the CLI's progress lines)."""
+    with span("render"):
+        img, aux = _render_image(scene, camera, config, key, impl, on_tile)
+        aux = {"overflow": host_read("overflow", aux["overflow"])}
     if with_aux:
         return img, aux
     return img

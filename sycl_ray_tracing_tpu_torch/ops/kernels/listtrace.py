@@ -57,6 +57,7 @@ from sycl_ray_tracing_tpu_torch.ops.cluster import (
 )
 from sycl_ray_tracing_tpu_torch.ops.intersect import BIG_T, Hit, finalize_hit
 from sycl_ray_tracing_tpu_torch.ops.safe_math import EPS
+from sycl_ray_tracing_tpu_torch.utils.metrics import host_read, span
 
 RB = 8             # per-ray pass: rays per sort block
 RB_SHARE = 32      # block-shared kernel: rays sharing one candidate list
@@ -405,8 +406,8 @@ def _run_once(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int, any_hit,
               sort=True, mask=None, share=False, force_dense=False,
               impl=None):
     """ONE exact candidate build + list kernel + reduction tail
-    (listtrace.py:384-677).  Returns (t [B], packed winner cluster*T+lane
-    [B] (-1 miss), resolved [B]).
+    (listtrace.py:384-677), under the span ``query.pass``.  Returns (t
+    [B], packed winner cluster*T+lane [B] (-1 miss), resolved [B]).
 
     ``any_hit``: bool or [B] bool.  ``mask``: optional [B] bool; False rays
     are dead and reported as misses.  Live rays sort ahead of dead ones,
@@ -417,6 +418,13 @@ def _run_once(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int, any_hit,
     (listtrace.py:474-520), whose SC-overflow rows come poisoned (last
     ctn -BIG_T, so unresolved); ``force_dense`` (the escalation pass)
     keeps the dense build over all K2 clusters."""
+    with span("query.pass", rays=ray_o.shape[0]):
+        return _pass(scene, ray_o, ray_d, t_lim, maxc, any_hit, sort, mask,
+                     share, force_dense, impl)
+
+
+def _pass(scene, ray_o, ray_d, t_lim, maxc, any_hit, sort, mask, share,
+          force_dense, impl):
     if maxc > 128:
         raise ValueError("winner packing uses at most 7 round bits")
     rslot = 1 << max(1, maxc - 1).bit_length()
@@ -451,7 +459,7 @@ def _run_once(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int, any_hit,
         perm = torch.argsort(key, stable=True)
         rays = rays[perm]
         # live rays sort first: blocks past the live prefix are all dead
-        g = -(-int(mask.sum()) // rb)
+        g = -(-host_read("live_rays", mask.sum()) // rb)
     pad = nb * rb - B
     if pad:
         rays = torch.cat([rays, torch.zeros((pad, 8), dtype=rays.dtype,
@@ -465,24 +473,28 @@ def _run_once(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int, any_hit,
         args = (scene, rg[:, 0:3], rg[:, 3:6], rg[:, 6], maxc)
         # every pass asks for exact extraction (JAX _run passes exact=True,
         # listtrace.py:746, :780): full rows keep their certificates
-        if share and big:
-            cand, ctn, _of, covered = candidate_clusters_hier(
-                *args, maxs, rb, grouped=True, exact=True, ray_cert=True)
-        elif share:
-            cand, ctn, _of, covered = candidate_clusters_grouped(
-                *args, rb, exact=True, ray_cert=True)
-        elif big:
-            cand, ctn, _of = candidate_clusters_hier(*args, maxs, rb,
-                                                     exact=True)
-        else:
-            cand, ctn, _of = candidate_clusters(*args, exact=True)
+        with span("query.build"):
+            if share and big:
+                cand, ctn, _of, covered = candidate_clusters_hier(
+                    *args, maxs, rb, grouped=True, exact=True,
+                    ray_cert=True)
+            elif share:
+                cand, ctn, _of, covered = candidate_clusters_grouped(
+                    *args, rb, exact=True, ray_cert=True)
+            elif big:
+                cand, ctn, _of = candidate_clusters_hier(*args, maxs, rb,
+                                                         exact=True)
+            else:
+                cand, ctn, _of = candidate_clusters(*args, exact=True)
         cand_k = torch.where(cand >= 0, cand, k2).to(torch.int32)
         if share:
-            at, ar, _stop = block_tiles(cand_k.contiguous(), ctn, rg, tris,
-                                        impl=impl)
+            with span("query.kernel", kernel="block_tiles"):
+                at, ar, _stop = block_tiles(cand_k.contiguous(), ctn, rg,
+                                            tris, impl=impl)
         else:
-            at, ar, _stop = list_tiles(cand_k.contiguous(), ctn, rg, tris,
-                                       impl=impl)
+            with span("query.kernel", kernel="list_tiles"):
+                at, ar, _stop = list_tiles(cand_k.contiguous(), ctn, rg,
+                                           tris, impl=impl)
 
         # reduction tail: per-ray min over lanes; among lanes at the min
         # the smallest lane wins, then that lane's round (lane-major pack)
@@ -531,8 +543,16 @@ def _run(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int, any_hit,
          sort=True, mask=None, share=False, escalate=True, impl=None):
     """Exact list tracing (listtrace.py:687-817): the main pass, then a
     COMPACTED per-ray escalation pass over the live rays it could not
-    certify.  Returns (t [B], packed [B], resolved [B], overflow) where
-    overflow is the honest flag: some live ray is still uncertified."""
+    certify, under the span ``query``.  Returns (t [B], packed [B],
+    resolved [B], overflow) where overflow is the honest flag: some live
+    ray is still uncertified."""
+    with span("query", rays=ray_o.shape[0]):
+        return _query(scene, ray_o, ray_d, t_lim, maxc, any_hit, sort, mask,
+                      share, escalate, impl)
+
+
+def _query(scene, ray_o, ray_d, t_lim, maxc, any_hit, sort, mask, share,
+           escalate, impl):
     B = ray_o.shape[0]
     dev = ray_o.device
     div = ESC_CAP_DIV
@@ -552,30 +572,33 @@ def _run(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int, any_hit,
         redo = live & ~_certain(ah, packed, resolved)
         # a launch where every ray certified skips the pass (the merge
         # below would be the identity)
-        if bool(redo.any()):
-            maxc2 = min(128, 2 * maxc)
-            # stable partition, redo rays first (int key: CUDA sorts no bool)
-            perm_r = torch.argsort((~redo).to(torch.int32), stable=True)
-            idx = perm_r[:cap]
-            t2c, p2c, r2c = _run_once(
-                scene, ray_o[idx], ray_d[idx], t_lim[idx], maxc2, ah[idx],
-                sort=True, mask=redo[idx], share=False, force_dense=True,
-                impl=impl,
-            )
-            # merge back: original row -> its compact slot; redo rays past
-            # ``cap`` stay uncertified and keep the overflow flag honest
-            pos = torch.cumsum(redo.to(torch.int32), dim=0) - 1
-            slot = torch.clamp(pos, 0, cap - 1)
-            covered = redo & (pos < cap)
-            t2 = torch.where(covered, t2c[slot], t)
-            p2 = torch.where(covered, p2c[slot], packed)
-            r2 = torch.where(covered, r2c[slot], resolved)
-            # a certified per-ray answer replaces the union answer;
-            # uncertified ones keep whichever hit is nearer
-            use2 = redo & (r2 | (t2 < t))
-            t = torch.where(use2, t2, t)
-            packed = torch.where(use2, p2, packed)
-            resolved = resolved | (redo & r2)
+        if host_read("redo", redo.any()):
+            with span("query.escalate"):
+                maxc2 = min(128, 2 * maxc)
+                # stable partition, redo rays first (int key: CUDA sorts
+                # no bool)
+                perm_r = torch.argsort((~redo).to(torch.int32), stable=True)
+                idx = perm_r[:cap]
+                t2c, p2c, r2c = _run_once(
+                    scene, ray_o[idx], ray_d[idx], t_lim[idx], maxc2,
+                    ah[idx], sort=True, mask=redo[idx], share=False,
+                    force_dense=True, impl=impl,
+                )
+                # merge back: original row -> its compact slot; redo rays
+                # past ``cap`` stay uncertified and keep the overflow flag
+                # honest
+                pos = torch.cumsum(redo.to(torch.int32), dim=0) - 1
+                slot = torch.clamp(pos, 0, cap - 1)
+                covered = redo & (pos < cap)
+                t2 = torch.where(covered, t2c[slot], t)
+                p2 = torch.where(covered, p2c[slot], packed)
+                r2 = torch.where(covered, r2c[slot], resolved)
+                # a certified per-ray answer replaces the union answer;
+                # uncertified ones keep whichever hit is nearer
+                use2 = redo & (r2 | (t2 < t))
+                t = torch.where(use2, t2, t)
+                packed = torch.where(use2, p2, packed)
+                resolved = resolved | (redo & r2)
     overflow = (live & ~_certain(ah, packed, resolved)).any()
     return t, packed, resolved, overflow
 

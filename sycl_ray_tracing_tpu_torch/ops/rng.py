@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from sycl_ray_tracing_tpu_torch.utils.metrics import span
+
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -75,4 +77,5 @@ def uniform(key: torch.Tensor, shape, device) -> torch.Tensor:
 def uniforms(key: torch.Tensor, bounce: int, tag: int, shape,
              device) -> torch.Tensor:
     """``pathtracer._uniforms``: uniform(fold_in(fold_in(key, bounce), tag))."""
-    return uniform(fold_in(fold_in(key, bounce), tag), shape, device)
+    with span("rng.draw"):
+        return uniform(fold_in(fold_in(key, bounce), tag), shape, device)

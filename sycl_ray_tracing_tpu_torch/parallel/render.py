@@ -24,6 +24,7 @@ from sycl_ray_tracing_tpu_torch.models.scene import Materials, Scene
 from sycl_ray_tracing_tpu_torch.ops.rng import fold_in
 from sycl_ray_tracing_tpu_torch.parallel.mesh import Mesh, pad_to_multiple
 from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
+from sycl_ray_tracing_tpu_torch.utils.metrics import span
 
 
 def _shard_key(key, mesh: Mesh):
@@ -98,12 +99,20 @@ def make_train_step(scene: Scene, config: RenderConfig, mesh: Mesh,
     (~100x brighter) don't drown materials.  ``grads`` is (Materials of
     gradients,) or, with ``optimize_env``, (that, the sky's gradient);
     loss and gradients are averaged over the whole mesh, so every rank
-    returns the same.
+    returns the same.  A step runs under the span ``train.step``, its
+    target render under ``train.target``, the guess's render under
+    ``train.guess`` and the gradient under ``train.backward``.
     """
     spp_shard = max(1, config.samples // mesh.n_sample)
 
     def step(materials: Materials, env_image, target_materials: Materials,
              target_env, camera: Camera, px, py, key):
+        with span("train.step"):
+            return _step(materials, env_image, target_materials, target_env,
+                         camera, px, py, key)
+
+    def _step(materials, env_image, target_materials, target_env, camera,
+              px, py, key):
         if px.shape[0] % mesh.n_data != 0:
             raise ValueError("the pixel list must divide over the data axis")
         shard = px.shape[0] // mesh.n_data
@@ -111,15 +120,16 @@ def make_train_step(scene: Scene, config: RenderConfig, mesh: Mesh,
         px, py = px[sl], py[sl]
         k = _shard_key(key, mesh)
 
-        with torch.no_grad():
+        with torch.no_grad(), span("train.target"):
             target = _shard_render(target_materials, target_env, camera,
                                    scene, px, py, config, k, spp_shard)
         mats = Materials(*(_leaf(getattr(materials, f.name))
                            for f in dataclasses.fields(Materials)))
         env = (_leaf(torch.as_tensor(env_image, device=scene.device))
                if optimize_env else env_image)
-        hdr = _shard_render(mats, env, camera, scene, px, py, config, k,
-                            spp_shard)
+        with span("train.guess"):
+            hdr = _shard_render(mats, env, camera, scene, px, py, config, k,
+                                spp_shard)
         # torch.maximum splits a tie's gradient in half like jnp.maximum
         # (clamp_min would pass all of it at the many black pixels)
         zero = torch.zeros_like(hdr)
@@ -129,7 +139,8 @@ def make_train_step(scene: Scene, config: RenderConfig, mesh: Mesh,
         leaves = [getattr(mats, f.name) for f in dataclasses.fields(mats)]
         if optimize_env:
             leaves.append(env)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(leaves, grads)]
 

@@ -51,7 +51,7 @@ from sycl_ray_tracing_tpu_torch.utils.hdr import read_hdr, write_hdr
 from sycl_ray_tracing_tpu_torch.utils.image_io import read_png
 from sycl_ray_tracing_tpu_torch.utils.metrics import (
     RenderMetrics,
-    device_op_times,
+    device_op_totals,
     profiler_trace,
 )
 from sycl_ray_tracing_tpu_torch.utils.procedural import (
@@ -282,5 +282,5 @@ def test_profiler_trace_writes_a_chrome_trace(tmp_path):
     with profiler_trace(str(tmp_path / "trace")) as prof:
         torch.ones(64).cumsum(0)
     assert json.loads((tmp_path / "trace" / "trace.json").read_text())
-    # no CUDA activity on the CPU: no device ops to rank
-    assert device_op_times(prof) == []
+    # no CUDA activity on the CPU: no device ops to total
+    assert device_op_totals(prof) == {}

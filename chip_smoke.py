@@ -66,7 +66,11 @@ Phases (any failure exits non-zero):
      same candidates on lists that fit, entry-t within the id-bit
      quantization); the frame warm (overflow False, finite, both launch
      counters above 0, peak memory under 20 GB) with its time, launches,
-     each list kernel's event and device time and bound per frame, the
+     its candidate builds (utils.metrics.COUNTS, reset just before: the
+     fused supercluster builds at least 1 and equal to the block_tiles
+     launches, the torch builds equal to the escalations' list_tiles
+     launches), each list kernel's event and device time and bound per
+     frame, the
      poisoned lists and escalation rays per launch; the largest escalation
      list_tiles launch bit for bit; one profiled frame (probes/frame.py,
      with the top device ops) and each candidate build's device time over
@@ -132,8 +136,10 @@ Phases (any failure exits non-zero):
      launch counters reset just before (finite losses, finite nonzero
      gradients, the diffuse error falls; both list kernels launched, none
      inside the backward calls; every launch of step 0's forward held bit
-     for bit against the plain versions as it happens; seconds a step,
-     peak memory).  (f) render_sharded on that rank: the 200k frame at
+     for bit against the plain versions as it happens; the candidate
+     builds counted, fused ones only if the scene has more than
+     2 * maxs * 64 clusters, which the 200k scene does not; seconds a
+     step, peak memory).  (f) render_sharded on that rank: the 200k frame at
      512x512, 1 spp, 8 bounces in one render_rays call (block_tiles
      launches of up to 786,432 rays), the counters reset just before and
      every launch held bit for bit (both kernels launched), then again
@@ -180,6 +186,18 @@ Phases (any failure exits non-zero):
      _grouped and _hier (per ray and grouped, at their default maxs and
      group) at exact False and True: the card's outputs equal the CPU's
      bit for bit, and exact=False poisons full rows that exact=True keeps.
+ 13. The fused supercluster candidate build (csrc/hier_build.cu) against
+     its plain torch version (python -m sycl_ray_tracing_tpu_torch.probes
+     hier_build): its registers, spill and occupancy (it fails if the
+     kernel spills); (cand, ctn, overflow, covered) bit for bit on the
+     hierarchical test mesh in every case of probes/hier_build.CASES
+     (dead rays and a dead block, non-finite rays, SC overflow, short,
+     full and poisoned rows, dropped columns) and on each supercluster
+     build of one 870k tile's first bounce; the largest of those builds
+     timed (CUDA events a call, the profiler's device time a launch)
+     beside its bound and the plain version's time.  Its kernels entry
+     takes its launches from phase 6's counted frame ("frame_870k":
+     launches, plain_builds) and phase 9's trainer ("train": the same).
 
 The second-to-last lines are the card line and one JSON object describing
 each kernel (time, plain version's time, launches, and the bound: the
@@ -814,7 +832,8 @@ def kernel_entry(name, source, replaces, ms, plain_ms, work, err, bounds):
 def big_frame_phase(kernels, card, cam, cfg, key, tile_key, px0, py0):
     """Phase 6: the 870k-triangle frame through the supercluster build
     (see the module docstring).  Adds each list kernel's per-frame numbers
-    to its kernels entry."""
+    to its kernels entry; returns the counted frame's candidate builds,
+    {"fused": kernel launches, "plain": torch builds}."""
     import torch
 
     from sycl_ray_tracing_tpu_torch.models import pathtracer as pt
@@ -825,6 +844,7 @@ def big_frame_phase(kernels, card, cam, cfg, key, tile_key, px0, py0):
     )
     from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as lt
     from sycl_ray_tracing_tpu_torch.probes import bounds, frame
+    from sycl_ray_tracing_tpu_torch.utils import metrics
     from sycl_ray_tracing_tpu_torch.utils.procedural import dragon_scene
 
     t6 = time.perf_counter()
@@ -861,11 +881,9 @@ def big_frame_phase(kernels, card, cam, cfg, key, tile_key, px0, py0):
     bounce = max(cap.tiles["block_tiles"], key=lambda c: c[-1].shape[0])
     cand_k, ctn, rays = bounce
     poisoned = ctn[:, -1] < 0
-    chunks = len(list(pc._row_chunks(rays.shape[0], cols, lt.RB_SHARE)))
     log(f"phase 6 bounce-1 fused launch: {rays.shape[0]} rays, "
         f"{live_note(cand_k, tris)}; {int(poisoned.sum())} of "
-        f"{cand_k.shape[0]} lists poisoned (SC overflow); the build ran in "
-        f"{chunks} row chunks")
+        f"{cand_k.shape[0]} lists poisoned (SC overflow)")
     _stop, err, _early = hold_tiles(lt, "block_tiles", bounce, tris,
                                     "phase 6 block_tiles bounce-1 launch "
                                     "(hierarchical lists)")
@@ -944,12 +962,15 @@ def big_frame_phase(kernels, card, cam, cfg, key, tile_key, px0, py0):
     first_s = time.perf_counter() - t0
     left = [(i, b, n, k) for i, (b, n, k) in enumerate(watch.calls) if k]
     lt.reset_launch_counts()
+    metrics.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     img, aux = pt.render(scene, cam, cfg, key, with_aux=True)
     torch.cuda.synchronize()
     frame_s = time.perf_counter() - t0
     launches = dict(lt.LAUNCHES)
+    n_builds = {k: metrics.COUNTS.get(f"cand_build.{k}", 0)
+                for k in ("fused", "plain")}
     peak = torch.cuda.max_memory_allocated()
     finite = bool(torch.isfinite(img).all())
     mean = float(img.mean())
@@ -965,9 +986,21 @@ def big_frame_phase(kernels, card, cam, cfg, key, tile_key, px0, py0):
     if not finite or mean <= 1e-4 or aux["overflow"] \
             or tuple(img.shape) != (H, W, 3):
         raise RuntimeError("the 870k frame failed its checks")
+    # each main pass builds its block lists with the fused kernel and
+    # launches block_tiles once; each escalation builds dense per-ray
+    # lists in torch and launches list_tiles once
+    log(f"phase 6 frame candidate builds: {n_builds['fused']} fused "
+        f"supercluster builds (block_tiles launches "
+        f"{launches['block_tiles']}), {n_builds['plain']} torch builds "
+        f"(list_tiles launches {launches['list_tiles']})")
     if min(launches.values()) < 1:
         raise RuntimeError(f"a kernel of the 870k path never launched: "
                            f"{launches}")
+    if n_builds["fused"] < 1 \
+            or n_builds["fused"] != launches["block_tiles"] \
+            or n_builds["plain"] != launches["list_tiles"]:
+        raise RuntimeError(f"the 870k frame's candidate builds {n_builds} "
+                           f"do not match its passes {launches}")
     if peak > PEAK_LIMIT:
         raise RuntimeError(f"the 870k frame peaked at {peak} bytes")
 
@@ -979,13 +1012,10 @@ def big_frame_phase(kernels, card, cam, cfg, key, tile_key, px0, py0):
     blocks = [a for n, _s, _e, _h, a in timer.launches if n == "block_tiles"]
     esc = [a for n, _s, _e, _h, a in timer.launches if n == "list_tiles"]
     n_poisoned = [int((a[1][:, -1] < 0).sum()) for a in blocks]
-    n_chunks = [len(list(pc._row_chunks(a[2].shape[0], cols, lt.RB_SHARE)))
-                for a in blocks]
     redo = [int((a[2][:, 6] > -BIG_T).sum()) for a in esc]
     log(f"phase 6 poisoned (SC-overflow) lists per block_tiles launch: "
         f"{n_poisoned} (sum {sum(n_poisoned)} of "
-        f"{sum(a[0].shape[0] for a in blocks)} lists); the build's row "
-        f"chunks per launch: {n_chunks} (sum {sum(n_chunks)})")
+        f"{sum(a[0].shape[0] for a in blocks)} lists)")
     log(f"phase 6 escalation rays per list_tiles launch: {redo} (sum "
         f"{sum(redo)})")
     cand, ctn_e, rays_e, tris_e, stop = max(esc, key=lambda a: a[0].shape[0])
@@ -1023,6 +1053,7 @@ def big_frame_phase(kernels, card, cam, cfg, key, tile_key, px0, py0):
         f"{prof['wall_ms']:.1f} ms under the profiler, {frame_s * 1e3:.1f} "
         f"ms without ({card})")
     log(f"phase 6 took {time.perf_counter() - t6:.1f} s, card {card}")
+    return n_builds
 
 
 def grad_phase(kernels, card, scene, cam, cfg, key, tile_key, px0, py0,
@@ -1389,6 +1420,7 @@ def cli_phase(card, scene, shared_mean):
     from sycl_ray_tracing_tpu_torch.parallel.render import render_sharded
     from sycl_ray_tracing_tpu_torch.probes import bounds, frame
     from sycl_ray_tracing_tpu_torch.utils import hdr as hdr_mod
+    from sycl_ray_tracing_tpu_torch.utils import metrics
     from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig, parse_cli
     from sycl_ray_tracing_tpu_torch.utils.image_io import read_image_float
     from sycl_ray_tracing_tpu_torch.utils.obj_loader import (
@@ -1608,6 +1640,7 @@ def cli_phase(card, scene, shared_mean):
         # (target and guess) held against the plain versions; the
         # launches inside each backward counted
         lt.reset_launch_counts()
+        metrics.reset_counts()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
@@ -1618,6 +1651,11 @@ def cli_phase(card, scene, shared_mean):
         step_s = (time.perf_counter() - t0 - hold.seconds) / TRAIN_STEPS
         peak = torch.cuda.max_memory_allocated()
         launches = dict(lt.LAUNCHES)
+        fused = metrics.COUNTS.get("cand_build.fused", 0)
+        plain = metrics.COUNTS.get("cand_build.plain", 0)
+        # the fused build runs only above 2 * maxs * 64 clusters
+        maxs = max(lt.HIER_MAXS, lt.DEFAULT_MAXC_SHARE // 3)
+        big = scene.clusters.num_clusters > 2 * maxs * lt.S_CLUSTER
         g = torch.cat([x.flatten() for x in out["grads"]])
         losses_ok = all(np.isfinite(x) for x in out["losses"])
         grads_ok = bool(torch.isfinite(g).all()) and bool((g != 0).any())
@@ -1635,8 +1673,17 @@ def cli_phase(card, scene, shared_mean):
             f" {bwd.launches} of them inside the {bwd.calls} backward calls; "
             f"step 0's forward held launch by launch (launches, rays of the "
             f"largest, max |dt|): {hold.held}, each bit-identical")
+        log(f"phase 9 train candidate builds: {fused} fused, {plain} torch "
+            f"({scene.clusters.num_clusters} clusters: the supercluster "
+            f"build {'runs' if big else 'does not run'} above "
+            f"{2 * maxs * lt.S_CLUSTER})")
         if not (losses_ok and grads_ok and out["err_d"] < out["err0_d"]):
             raise RuntimeError("the trainer failed its checks")
+        if (fused > 0) != big or plain < 1:
+            raise RuntimeError(f"the trainer's candidate builds: {fused} "
+                               f"fused, {plain} torch")
+        phase9["hier_build"] = {"train": dict(launches=fused,
+                                              plain_builds=plain)}
         if min(launches.values()) < 1 or any(bwd.launches.values()) \
                 or bwd.calls != TRAIN_STEPS \
                 or hold.held["block_tiles"][0] < 1:
@@ -1951,6 +1998,21 @@ def api_rays(tris, n: int, seed: int):
     d = tris[rng.integers(0, tris.shape[0], n)].mean(axis=1) - o
     dist = np.linalg.norm(d, axis=-1)
     return o, (d / dist[:, None]).astype(np.float32), dist.astype(np.float32)
+
+
+def cand_build_phase(card, dev) -> dict:
+    """Phase 13: the fused supercluster build against its plain version
+    (see the module docstring).  Returns its kernels entry."""
+    from sycl_ray_tracing_tpu_torch.probes import bounds, hier_build
+
+    t13 = time.perf_counter()
+    out = hier_build.run(dev, log=lambda m: log(f"phase 13 {m}"))
+    entry = kernel_entry("hier_build", "csrc/hier_build.cu",
+                         "none (the XLA build, sycl_ray_tracing_tpu/ops/"
+                         "cluster.py:784-919)", out["device_ms"],
+                         out["plain_ms"], out["work"], 0.0, bounds)
+    log(f"phase 13 took {time.perf_counter() - t13:.1f} s, card {card}")
+    return entry
 
 
 def api_phase(kernels, card, dev) -> None:
@@ -2522,7 +2584,8 @@ def main() -> int:
             f"sweeps), card {card}")
 
         # ---- phase 6: the 870k-triangle frame ----
-        big_frame_phase(kernels, card, cam, cfg, key, tile_key, px0, py0)
+        frame_builds = big_frame_phase(kernels, card, cam, cfg, key,
+                                       tile_key, px0, py0)
 
     # ---- phase 7: the backward pass (bench.py section 2) ----
     grad_phase(kernels, card, scene, cam, cfg, key, tile_key, px0, py0,
@@ -2558,6 +2621,15 @@ def main() -> int:
     # ---- phase 12: the JAX API's calls the port now takes alike ----
     with torch.no_grad():
         api_phase(kernels, card, dev)
+
+    # ---- phase 13: the fused supercluster build ----
+    with torch.no_grad():
+        entry = cand_build_phase(card, dev)
+    entry["launches"] = frame_builds["fused"]
+    entry["frame_870k"] = dict(launches=frame_builds["fused"],
+                               plain_builds=frame_builds["plain"])
+    entry.update(phase9["hier_build"])
+    kernels.append(entry)
 
     for k in kernels:
         del k["ops"], k["bytes"]

@@ -7,7 +7,10 @@ superclusters of S_CLUSTER=64; the tables are built in numpy exactly as
 the JAX package builds them.
 
 The candidate builds are plain torch (they are XLA, not Pallas, in the
-JAX package):
+JAX package), but for one: on CUDA tensors the grouped supercluster build
+runs as one hand-written kernel (csrc/hier_build.cu, loaded through
+ops/kernels/cuda_lib.py), its plain version ``_hier_rows`` the CPU path
+and its twin:
   * the dense builds (``candidate_clusters``, ``_grouped``): a [rays, K2]
     slab test, the nearest-first extraction (packed quantized-entry-t |
     cluster-id keys, sorted; ``exact`` chooses which rows keep their
@@ -19,7 +22,8 @@ JAX package):
     child boxes of those superclusters only.
 Every step is row-local (block-local), so each build runs in row chunks
 to bound its [rows, columns] transients; chunking does not change any
-result.
+result.  ``utils.metrics.COUNTS`` counts the builds: "cand_build.fused"
+the kernel's launches, "cand_build.plain" the builds the torch code made.
 
 The XLA pair tracer (the "cluster" backend, cluster.py:207-416,
 :922-976) is plain torch too: a dense [B,K1] supercluster slab test,
@@ -45,8 +49,14 @@ from sycl_ray_tracing_tpu_torch.ops.intersect import (
     _mt_scalar,
     finalize_hit,
 )
+from sycl_ray_tracing_tpu_torch.ops.kernels.cuda_lib import (
+    kernel_info,
+    load_cuda_library,
+    stream_of,
+)
 from sycl_ray_tracing_tpu_torch.ops.safe_math import EPS
 from sycl_ray_tracing_tpu_torch.utils.device import resolve_device
+from sycl_ray_tracing_tpu_torch.utils.metrics import tally
 
 T_CLUSTER = 128      # triangles per cluster
 S_CLUSTER = 64       # clusters per supercluster
@@ -54,6 +64,11 @@ SHADOW_EPS = 1e-4    # reference t_max slack (render_kernel.cpp:751)
 _DEAD = 0x7F800000   # +inf bits: a packed key above every real key
 # [rows, K2] elements per chunk of the dense build (~128 MB per f32 array)
 _CHUNK_ELEMS = 1 << 25
+# the fused supercluster build's arrays: superclusters (MAX_CLUSTERS / S),
+# supercluster and candidate slots, rays a block (a bit of a mask each)
+HIER_MAX_K1 = 128
+HIER_MAX_SLOTS = 128
+HIER_MAX_GROUP = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -400,6 +415,7 @@ def candidate_clusters(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int,
     Returns (cand [B,maxc] i32, -1 empty; ctn [B,maxc] f32, BIG_T empty;
     overflow bool tensor: some ray hit more than maxc boxes).  ``exact``:
     see extract_candidates; every list-tracer pass asks for it."""
+    tally("cand_build.plain")
     inv_d = inv_dir(ray_d)
     cands, ctns, ovf = [], [], torch.zeros((), dtype=torch.bool,
                                            device=ray_o.device)
@@ -427,6 +443,7 @@ def candidate_clusters_grouped(scene: ClusterScene, ray_o, ray_d, t_lim,
     if B % group:
         raise ValueError(f"{B} rays do not divide into blocks of {group}")
     _check_ray_cert(exact, ray_cert)
+    tally("cand_build.plain")
     k2 = scene.num_clusters
     inv_d = inv_dir(ray_d)
     cands, ctns, covs = [], [], []
@@ -461,7 +478,7 @@ def _check_ray_cert(exact: bool, ray_cert: bool):
 def candidate_clusters_hier(scene: ClusterScene, ray_o, ray_d, t_lim,
                             maxc: int, maxs: int = 12, group: int = 8,
                             grouped: bool = False, exact: bool = False,
-                            ray_cert: bool = False):
+                            ray_cert: bool = False, impl=None):
     """Nearest-first candidate lists through a SUPERCLUSTER prefilter
     (cluster.py:784-919): per-ray lists [B, maxc], or with
     ``grouped=True`` per-BLOCK union lists [B/group, maxc] (the block
@@ -488,7 +505,16 @@ def candidate_clusters_hier(scene: ClusterScene, ray_o, ray_d, t_lim,
     returns covered [B], the per-ray membership certificate over the local
     columns, False in every SC-overflow block.  Returns (cand, ctn,
     overflow[, covered]).  Runs in block-aligned row chunks; chunking
-    changes no result."""
+    changes no result.
+
+    Where it runs, as ``listtrace.block_tiles`` chooses: with
+    ``grouped=True`` CUDA tensors launch the fused kernel
+    (``_hier_cuda``, bit for bit the torch version), and CPU tensors or
+    ``impl="plain"`` take the torch version (``_hier_rows``), which also
+    builds every per-ray (``grouped=False``) list on either device: those
+    lists keep no block union, so the block kernel does not build them
+    (the list tracer asks for them only with a pinned ``maxc``, which no
+    benchmark cell runs).  ``impl="cuda"`` asks for the kernel."""
     B = ray_o.shape[0]
     if B % group:
         raise ValueError(f"{B} rays do not divide into blocks of {group}")
@@ -496,6 +522,10 @@ def candidate_clusters_hier(scene: ClusterScene, ray_o, ray_d, t_lim,
         raise ValueError("ray_cert needs grouped=True: the membership "
                          "certificate is defined for block lists only")
     _check_ray_cert(exact, ray_cert)
+    if not _hier_plain(scene, ray_o, maxc, maxs, group, grouped, impl):
+        return _hier_cuda(scene, ray_o, ray_d, t_lim, maxc, maxs, group,
+                          exact, ray_cert)
+    tally("cand_build.plain")
     inv_d = inv_dir(ray_d)
     outs = [_hier_rows(scene, ray_o[lo:hi], inv_d[lo:hi], t_lim[lo:hi],
                        maxc, maxs, group, grouped, exact, ray_cert)
@@ -506,6 +536,92 @@ def candidate_clusters_hier(scene: ClusterScene, ray_o, ray_d, t_lim,
     if ray_cert:
         return cand, ctn, ovf, torch.cat([o[3] for o in outs])
     return cand, ctn, ovf
+
+
+def _hier_plain(scene: ClusterScene, ray_o, maxc: int, maxs: int,
+                group: int, grouped: bool, impl) -> bool:
+    """Whether candidate_clusters_hier takes its torch version (see its
+    docstring); raises on a bad ``impl``, and where the kernel is asked
+    for, on what it cannot take."""
+    if impl not in (None, "plain", "cuda"):
+        raise ValueError(f"bad impl {impl!r}")
+    if impl == "plain" or (impl is None and (not grouped or not ray_o.is_cuda)):
+        return True
+    if not grouped:
+        raise ValueError("candidate_clusters_hier: the kernel builds block "
+                         "lists only (grouped=True)")
+    _check_hier_shapes(scene, maxc, maxs, group)
+    if not ray_o.is_cuda:
+        raise ValueError("candidate_clusters_hier: the CUDA kernel needs "
+                         "CUDA tensors")
+    return False
+
+
+def _check_hier_shapes(scene: ClusterScene, maxc: int, maxs: int,
+                       group: int):
+    """The shapes the fused kernel's shared arrays hold."""
+    k1 = scene.num_superclusters
+    if not 1 <= k1 <= HIER_MAX_K1:
+        raise ValueError(f"the fused build takes 1 to {HIER_MAX_K1} "
+                         f"superclusters, got {k1}")
+    for name, v, top in (("maxs", maxs, HIER_MAX_SLOTS),
+                         ("maxc", maxc, HIER_MAX_SLOTS),
+                         ("group", group, HIER_MAX_GROUP)):
+        if not 1 <= v <= top:
+            raise ValueError(f"the fused build takes {name} 1 to {top}, "
+                             f"got {v}")
+    if tuple(scene.sc_box.shape) != (k1, 8) or \
+            tuple(scene.cl_box_rows.shape) != (k1, 8 * S_CLUSTER):
+        raise ValueError("the fused build needs sc_box [K1, 8] and "
+                         "cl_box_rows [K1, 8*64]")
+
+
+def _hier_cuda(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int,
+               maxs: int, group: int, exact: bool, ray_cert: bool):
+    """Launch the fused supercluster build (csrc/hier_build.cu) over all
+    B / group blocks at once; arguments as candidate_clusters_hier,
+    already checked.  Returns what it returns with grouped=True."""
+    B = ray_o.shape[0]
+    dev = ray_o.device
+    tables = (scene.sc_box, scene.cl_box_rows)
+    if any(t.dtype != torch.float32 for t in (ray_o, ray_d, t_lim) + tables):
+        raise TypeError("the fused build takes float32 rays and tables")
+    if ray_o.shape != (B, 3) or ray_d.shape != (B, 3) or t_lim.shape != (B,):
+        raise ValueError("ray_o, ray_d must be [B, 3] and t_lim [B]")
+    if any(t.device != dev for t in (ray_d, t_lim) + tables):
+        raise ValueError("rays and cluster tables must share a device")
+    tables = tuple(t.contiguous() for t in tables)
+    # rows may be strided (the list tracer passes columns of its ray rows)
+    ray_o, ray_d = (x if x.stride(1) == 1 else x.contiguous()
+                    for x in (ray_o, ray_d))
+    nb = B // group
+    cand = torch.empty((nb, maxc), dtype=torch.int32, device=dev)
+    ctn = torch.empty((nb, maxc), dtype=torch.float32, device=dev)
+    covered = torch.empty((B,), dtype=torch.bool, device=dev) \
+        if ray_cert else None
+    flag = torch.empty((nb,), dtype=torch.bool, device=dev)
+    if nb:
+        rc = load_cuda_library().srt_hier_build(
+            tables[0].data_ptr(), tables[1].data_ptr(), ray_o.data_ptr(),
+            ray_o.stride(0), ray_d.data_ptr(), ray_d.stride(0),
+            t_lim.data_ptr(), t_lim.stride(0), cand.data_ptr(),
+            ctn.data_ptr(), None if covered is None else covered.data_ptr(),
+            flag.data_ptr(), nb, scene.num_superclusters, maxs, maxc, group,
+            int(exact), _id_bits(scene.num_superclusters),
+            _id_bits(maxs * S_CLUSTER), stream_of(ray_o))
+        if rc != 0:
+            raise RuntimeError(f"hier_build launch failed: CUDA error {rc}")
+        tally("cand_build.fused")
+    if ray_cert:
+        return cand, ctn, flag.any(), covered
+    return cand, ctn, flag.any()
+
+
+def hier_build_info(maxs: int) -> dict:
+    """The built fused kernel's registers, spill and occupancy, with the
+    shared memory of maxs * 64 columns."""
+    return kernel_info("hier_build", load_cuda_library().srt_hier_build_info,
+                       maxs * S_CLUSTER)
 
 
 def _hier_rows(scene: ClusterScene, ray_o, inv_d, t_lim, maxc: int,

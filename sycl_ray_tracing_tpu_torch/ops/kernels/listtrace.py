@@ -39,10 +39,6 @@ LISTTRACE_NO_ESCALATE.
 
 from __future__ import annotations
 
-import ctypes
-import shutil
-from pathlib import Path
-
 import torch
 
 from sycl_ray_tracing_tpu_torch.ops.cluster import (
@@ -56,6 +52,11 @@ from sycl_ray_tracing_tpu_torch.ops.cluster import (
     inv_dir,
 )
 from sycl_ray_tracing_tpu_torch.ops.intersect import BIG_T, Hit, finalize_hit
+from sycl_ray_tracing_tpu_torch.ops.kernels.cuda_lib import (
+    kernel_info,
+    load_cuda_library,
+    stream_of,
+)
 from sycl_ray_tracing_tpu_torch.ops.safe_math import EPS
 from sycl_ray_tracing_tpu_torch.utils.metrics import host_read, span
 
@@ -69,54 +70,16 @@ GROUP = 8          # rounds before the first tail guard
 CHUNK = 16         # rounds between tail guards
 MAX_CLUSTERS = 8192  # 13-bit candidate ids / 20-bit packed winners
 LIST_SHARE_DEFAULT = True
-
-CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
-CSRC = CSRC_DIR / "listtrace.cu"
-HEADERS = [CSRC_DIR / "mt8.cuh"]
 LIST_RAYS_PER_BLOCK = (1, 8, 16, 32)
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
 
 # launches of each CUDA kernel since the last reset (plain-version calls
 # are not counted)
 LAUNCHES = {"block_tiles": 0, "list_tiles": 0}
 
-_cuda_lib = None
-
 
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def nvcc_path() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    return "/usr/local/cuda/bin/nvcc"
-
-
-def load_cuda_library() -> ctypes.CDLL:
-    """Build csrc/listtrace.cu with nvcc (at first use, into the package's
-    build/ directory) and load it.  Raises if the build fails."""
-    global _cuda_lib
-    if _cuda_lib is None:
-        from sycl_ray_tracing_tpu_torch.native import build_shared_library
-
-        path = build_shared_library([CSRC], "liblisttrace", [nvcc_path()],
-                                    NVCC_FLAGS, HEADERS)
-        lib = ctypes.CDLL(str(path))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for name, args in (("srt_block_tiles", [p] * 8 + [i] * 3 + [p]),
-                           ("srt_list_tiles", [p] * 7 + [i] * 4 + [p]),
-                           ("srt_block_tiles_info", [p]),
-                           ("srt_list_tiles_info", [i, p])):
-            fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = args
-        _cuda_lib = lib
-    return _cuda_lib
 
 
 def _mt8(ax, ay, az, bx, by, bz, cx, cy, cz, ox, oy, oz, dx, dy, dz, tl):
@@ -238,10 +201,6 @@ def _check_tile_args(cand, rays, tris, rows: int, ctn=None):
                          "on cand's device")
 
 
-def _stream(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _use_plain(name: str, cand, impl) -> bool:
     if impl == "plain" or (impl is None and cand.device.type == "cpu"):
         return True
@@ -250,19 +209,6 @@ def _use_plain(name: str, cand, impl) -> bool:
     if not cand.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors")
     return False
-
-
-def _info(name: str, fn, *args) -> dict:
-    """A built kernel's registers and local (spill) bytes per thread,
-    threads per block and resident blocks and warps per SM."""
-    info = (ctypes.c_int * 5)()
-    rc = fn(*args, info)
-    if rc != 0:
-        raise RuntimeError(f"{name}_info failed: CUDA error {rc}")
-    regs, local, blocks, threads, shared = info
-    return dict(registers=regs, local_bytes=local, threads=threads,
-                blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32,
-                shared_bytes=shared)
 
 
 def block_tiles(cand, ctn, rays, tris, impl=None):
@@ -300,7 +246,7 @@ def block_tiles_cuda(cand, ctn, rays, tris):
     rc = lib.srt_block_tiles(
         cand.data_ptr(), ctn.data_ptr(), rays.data_ptr(), tris.data_ptr(),
         scratch.data_ptr(), at.data_ptr(), ar.data_ptr(), stop.data_ptr(),
-        nb, maxc, dummy, _stream(cand))
+        nb, maxc, dummy, stream_of(cand))
     if rc != 0:
         raise RuntimeError(f"block_tiles launch failed: CUDA error {rc}")
     LAUNCHES["block_tiles"] += 1
@@ -309,7 +255,8 @@ def block_tiles_cuda(cand, ctn, rays, tris):
 
 def block_tiles_info() -> dict:
     """The built block kernel's registers, spill and occupancy."""
-    return _info("block_tiles", load_cuda_library().srt_block_tiles_info)
+    return kernel_info("block_tiles",
+                       load_cuda_library().srt_block_tiles_info)
 
 
 def list_tiles(cand, ctn, rays, tris, impl=None, rays_per_block: int = 1):
@@ -353,7 +300,7 @@ def list_tiles_cuda(cand, ctn, rays, tris, rays_per_block: int = 1):
     rc = lib.srt_list_tiles(
         cand.data_ptr(), ctn.data_ptr(), rays.data_ptr(), tris.data_ptr(),
         at.data_ptr(), ar.data_ptr(), stop.data_ptr(), n, maxc,
-        tris.shape[0] - 1, rays_per_block, _stream(cand))
+        tris.shape[0] - 1, rays_per_block, stream_of(cand))
     if rc != 0:
         raise RuntimeError(f"list_tiles launch failed: CUDA error {rc}")
     LAUNCHES["list_tiles"] += 1
@@ -366,8 +313,9 @@ def list_tiles_info(rays_per_block: int = 1) -> dict:
     if rays_per_block not in LIST_RAYS_PER_BLOCK:
         raise ValueError(f"rays_per_block must be one of "
                          f"{LIST_RAYS_PER_BLOCK}, got {rays_per_block}")
-    return _info("list_tiles", load_cuda_library().srt_list_tiles_info,
-                 rays_per_block)
+    return kernel_info("list_tiles",
+                       load_cuda_library().srt_list_tiles_info,
+                       rays_per_block)
 
 
 def _scene_bounds(scene: ClusterScene):
@@ -477,7 +425,7 @@ def _pass(scene, ray_o, ray_d, t_lim, maxc, any_hit, sort, mask, share,
             if share and big:
                 cand, ctn, _of, covered = candidate_clusters_hier(
                     *args, maxs, rb, grouped=True, exact=True,
-                    ray_cert=True)
+                    ray_cert=True, impl=impl)
             elif share:
                 cand, ctn, _of, covered = candidate_clusters_grouped(
                     *args, rb, exact=True, ray_cert=True)

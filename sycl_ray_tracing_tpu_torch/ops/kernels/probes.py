@@ -34,10 +34,11 @@ import ctypes
 import torch
 
 from sycl_ray_tracing_tpu_torch.ops.cluster import T_CLUSTER
+from sycl_ray_tracing_tpu_torch.ops.kernels import cuda_lib
 from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as lt
 from sycl_ray_tracing_tpu_torch.ops.safe_math import EPS
 
-CSRC = lt.CSRC_DIR / "probes.cu"
+CSRC = cuda_lib.CSRC_DIR / "probes.cu"
 
 # list_tiles_min's rays (warps) per CUDA block, kMinRays in
 # csrc/probes.cu: the fastest of 8 / 16 / 32 on an H100 (PERF.md)
@@ -78,8 +79,9 @@ def load_cuda_library() -> ctypes.CDLL:
     if _lib is None:
         from sycl_ray_tracing_tpu_torch.native import build_shared_library
 
-        path = build_shared_library([CSRC], "libprobes", [lt.nvcc_path()],
-                                    lt.NVCC_FLAGS, lt.HEADERS)
+        path = build_shared_library([CSRC], "libprobes",
+                                    [cuda_lib.nvcc_path()],
+                                    cuda_lib.NVCC_FLAGS, cuda_lib.HEADERS)
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for name, args in (
@@ -162,9 +164,9 @@ def list_tiles_min(cand, rays, tris, impl=None):
 def list_tiles_min_info(maxc: int, ntiles: int) -> dict:
     """The built union-walk kernel's registers, spill, shared bytes and
     occupancy for lists of ``maxc`` slots over ``ntiles`` (K2+1) tiles."""
-    return lt._info("list_tiles_min",
-                    load_cuda_library().srt_list_tiles_min_info, maxc,
-                    ntiles)
+    return cuda_lib.kernel_info("list_tiles_min",
+                                load_cuda_library().srt_list_tiles_min_info,
+                                maxc, ntiles)
 
 
 # ---- round_probe ------------------------------------------------------
@@ -250,8 +252,9 @@ def round_probe(cand, tris, variant: str, subblocks: int = 1, impl=None,
 def round_probe_info(variant: str, subblocks: int = 1) -> dict:
     """The built variant's registers, spill, shared bytes and occupancy
     at ``subblocks`` sub-blocks a block."""
-    return lt._info("round_probe", load_cuda_library().srt_round_probe_info,
-                    ROUND_VARIANTS.index(variant), subblocks)
+    return cuda_lib.kernel_info("round_probe",
+                                load_cuda_library().srt_round_probe_info,
+                                ROUND_VARIANTS.index(variant), subblocks)
 
 
 # ---- smoke_gather -----------------------------------------------------

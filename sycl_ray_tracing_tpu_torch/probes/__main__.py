@@ -2,9 +2,10 @@
 
     python -m sycl_ray_tracing_tpu_torch.probes [probe ...]
 
-with probes from kernel_shape, phase, chunk, micro_round, feature_smoke
-(all when none is named).  Each prints one line per measurement; the
-card's name and power limit come first.  Without a CUDA device it raises.
+with probes from kernel_shape, phase, chunk, micro_round, feature_smoke,
+hier_build (all when none is named).  Each prints one line per
+measurement; the card's name and power limit come first.  Without a CUDA
+device it raises.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ import sys
 
 import torch
 
-PROBES = ("kernel_shape", "phase", "chunk", "micro_round", "feature_smoke")
+PROBES = ("kernel_shape", "phase", "chunk", "micro_round", "feature_smoke",
+          "hier_build")
 N_TRIS = 200_000
 
 
@@ -23,6 +25,7 @@ def run_probes(names, scene, device, reps: int = 5):
     from sycl_ray_tracing_tpu_torch.probes import (
         chunk,
         feature_smoke,
+        hier_build,
         kernel_shape,
         micro_round,
         phase,
@@ -40,6 +43,8 @@ def run_probes(names, scene, device, reps: int = 5):
             micro_round.run(device, reps)
         elif name == "feature_smoke":
             feature_smoke.run(device, 4 * reps)
+        elif name == "hier_build":
+            hier_build.run(device, 4 * reps)
 
 
 def main(argv=None) -> int:

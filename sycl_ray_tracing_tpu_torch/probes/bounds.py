@@ -37,6 +37,9 @@ EDGE_OPS = 6      # the two edges, once per loaded tile lane
 # the parallel test 1, the reciprocal 1, u / v / t 18, hit tests and
 # u + v 5 (4 without the t > EPS test)
 SYNTH_MT_OPS = 45
+# a slab test per (ray, box): 6 subtracts, 6 multiplies, 10 min / max,
+# 3 compares
+SLAB_OPS = 25
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
@@ -126,6 +129,33 @@ def union_tiles(cand, dummy: int, rays_per_block: int) -> tuple[int, int]:
     first = torch.ones_like(ids, dtype=torch.bool)
     first[:, 1:] = ids[:, 1:] != ids[:, :-1]
     return int((cand != dummy).sum()), int((first & (ids != dummy)).sum())
+
+
+def hier_build_work(scene, ray_o, ray_d, t_lim, maxc: int, maxs: int,
+                    group: int, ray_cert: bool) -> tuple[float, float]:
+    """(operations, bytes) of the fused supercluster build: each ray's
+    slab test against every supercluster box, then against the 64 child
+    boxes of each supercluster its block keeps (min(hit, maxs) a block;
+    the integer key work is not counted).  Bytes: the rays' o, d and
+    t_lim, the supercluster boxes, each kept supercluster's child planes
+    once, the lists, flags and certificates written."""
+    from sycl_ray_tracing_tpu_torch.ops import cluster as pc
+
+    B = ray_o.shape[0]
+    nb = B // group
+    k1 = scene.num_superclusters
+    hit, tnear = pc.dense_box_mask(scene.sc_box, ray_o,
+                                   pc.inv_dir(ray_d), t_lim)
+    hit_g = hit.view(nb, group, k1).any(dim=1)
+    tn_g = torch.where(hit, torch.clamp_min(tnear, 0.0), 3.0e38)
+    scand = pc.extract_candidates_min(
+        hit_g, tn_g.view(nb, group, k1).amin(dim=1), maxs)[0]
+    kept = int((scand >= 0).sum())
+    ops = (B * k1 + kept * pc.S_CLUSTER * group) * SLAB_OPS
+    n_sc = int(torch.unique(scand[scand >= 0]).numel())
+    nbytes = (B * 7 * 4 + k1 * 6 * 4 + n_sc * 6 * pc.S_CLUSTER * 4
+              + nb * maxc * 8 + nb + (B if ray_cert else 0))
+    return ops, nbytes
 
 
 def round_probe_work(cand, tris, variant: str) -> tuple[float, float]:

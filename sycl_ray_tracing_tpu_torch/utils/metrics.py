@@ -24,7 +24,8 @@ none):
     carries.
   * ``COUNTS`` / ``reset_counts()``: counters that are always on, in the
     style of ``listtrace.LAUNCHES``; ``host_read`` counts each blocking
-    read of a device value by the host.
+    read of a device value by the host, ``tally`` any other event (the
+    candidate builds: "cand_build.fused", "cand_build.plain").
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from typing import Dict, Optional
 import torch
 
 # events since the last reset_counts(): "host_syncs" and
-# "host_syncs.<site>", one a host_read
+# "host_syncs.<site>", one a host_read, and the keys given to tally
 COUNTS: Dict[str, int] = {}
 
 _tracing = False
@@ -136,13 +137,17 @@ def reset_counts():
         COUNTS[k] = 0
 
 
+def tally(key: str):
+    """Count one event under COUNTS[key]."""
+    COUNTS[key] = COUNTS.get(key, 0) + 1
+
+
 def host_read(site: str, tensor):
     """``tensor.item()``, a read that waits for the device: counted under
     COUNTS["host_syncs"] and COUNTS["host_syncs.<site>"], and inside
     ``tracing()`` recorded as the span ``sync.<site>``."""
-    key = "host_syncs." + site
-    COUNTS["host_syncs"] = COUNTS.get("host_syncs", 0) + 1
-    COUNTS[key] = COUNTS.get(key, 0) + 1
+    tally("host_syncs")
+    tally("host_syncs." + site)
     if not _tracing:
         return tensor.item()
     with _Span("sync." + site, {}):

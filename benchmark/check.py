@@ -2,6 +2,9 @@
 held against the plain reference (benchmark/reference), each number
 beside a limit from the traffic file.
 
+The plain reference is the configuration's estimator's:
+reference/estimators/<estimator>.py under the benchmark's root.
+
 Progressive frames: a sample of (frame, tile) pairs drawn from the seed
 among the window's frames; the reference renders each tile from the
 benchmark's inputs and the frame's key; ``pixels_off`` is the share of
@@ -28,7 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from benchmark.reference import pathtrace, rng
+from benchmark import manifest
+from benchmark.reference import estimators, pathtrace, rng
 
 GRAD_FLOOR = 1e-3
 MAX_BRANCHES = 8
@@ -46,11 +50,15 @@ def frame_sample(seed: int, frames: int, tiles: int, count: int) -> list:
 
 
 def reference_tiles(inputs, cfg: dict, base_key, pairs, device,
-                    dtype=torch.float32, rules=(False, True)) -> dict:
-    """{(frame, tile): [HDR [tile_rays, 3] on the host]} by the reference:
-    one render under the lower-index tie rule, and where its scene
-    queries met a tie, a second under the higher (both are exact);
-    ``rules=(False,)`` renders the first only."""
+                    dtype=torch.float32, rules=(False, True),
+                    root=manifest.ROOT) -> dict:
+    """{(frame, tile): [HDR [tile_rays, 3] on the host]} by the
+    estimator's reference under ``root``: one render under the
+    lower-index tie rule, and where its scene queries met a tie, a second
+    under the higher (both are exact); ``rules=(False,)`` renders the
+    first only."""
+    render_tile = estimators.load(cfg["estimator"], root,
+                                  ("render_tile",)).render_tile
     torch.backends.cuda.matmul.allow_tf32 = False
     scene = pathtrace.Scene(inputs, device, dtype)
     out = {}
@@ -58,9 +66,9 @@ def reference_tiles(inputs, cfg: dict, base_key, pairs, device,
         variants = []
         for high in rules:
             scene.tree.tie_high, scene.tree.ties = high, 0
-            hdr = pathtrace.render_tile(scene, rng.fold_in(base_key, f), t,
-                                        cfg["tile_rays"], cfg["width"],
-                                        cfg["height"], cfg["bounces"])
+            hdr = render_tile(scene, rng.fold_in(base_key, f), t,
+                              cfg["tile_rays"], cfg["width"], cfg["height"],
+                              cfg["bounces"])
             variants.append(hdr.float().cpu())
             if not scene.tree.ties:
                 break
@@ -106,14 +114,17 @@ def window_pick(seed: int, first: int, steps: int) -> int:
 def reference_steps(inputs, cfg: dict, traffic: dict, base_key, start: dict,
                     steps: int, device, dtype=torch.float32,
                     max_branches: int = MAX_BRANCHES, first: int = 0,
-                    moments=None) -> list:
-    """The reference's trainer from ``start`` ({"diffuse", "roughness"}
-    host tensors) at step ``first`` with Adam's ``moments`` ({"m", "v"}:
-    [diffuse, roughness] host tensors each; zero if None), one branch per
-    choice of tie rule for each render that met a tie (at most
+                    moments=None, root=manifest.ROOT) -> list:
+    """The trainer of the estimator's reference under ``root`` from
+    ``start`` ({"diffuse", "roughness"} host tensors) at step ``first``
+    with Adam's ``moments`` ({"m", "v"}: [diffuse, roughness] host tensors
+    each; zero if None), one branch per choice of tie rule for each render
+    that met a tie (at most
     ``max_branches``; both rules give exact answers): [{"losses": [float],
     "grad": [diffuse, roughness] of the first step followed, "params":
     [diffuse, roughness] after ``steps``}]."""
+    train_loss = estimators.load(cfg["estimator"], root,
+                                 ("train_loss",)).train_loss
     torch.backends.cuda.matmul.allow_tf32 = False
     scene = pathtrace.Scene(inputs, device, dtype)
     lr = traffic["lr"]
@@ -136,9 +147,8 @@ def reference_steps(inputs, cfg: dict, traffic: dict, base_key, start: dict,
             while rules:
                 rule = rules.pop(0)
                 leaves = [p.detach().requires_grad_() for p in br["params"]]
-                loss, ties = pathtrace.train_loss(
-                    scene, *leaves, key, cfg["width"], cfg["height"],
-                    cfg["bounces"], rule)
+                loss, ties = train_loss(scene, *leaves, key, cfg["width"],
+                                        cfg["height"], cfg["bounces"], rule)
                 grads = torch.autograd.grad(loss, leaves)
                 grown.append(_adam(br, float(loss.detach()), grads, i + 1,
                                    lr, lo))

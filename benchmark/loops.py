@@ -23,11 +23,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from benchmark import check, stats, trace
+from benchmark import check, manifest, stats, trace
 from benchmark.inputs import scene_arrays
 from benchmark.reference import rng
 
@@ -44,6 +45,7 @@ class Context:
     trace: bool
     device: torch.device
     t_start: float
+    root: Path          # the benchmark's files, its references among them
 
 
 def _sync(dev):
@@ -185,22 +187,23 @@ class Frames:
 
 
 def frame_checks(inputs, cfg: dict, traffic: dict, seed: int, images: list,
-                 dev, dtype=torch.float32) -> float:
+                 dev, dtype=torch.float32, root=manifest.ROOT) -> float:
     """pixels_off of a sample of (frame, tile) pairs of ``images`` (the
-    frames 0.. of the seed's key) against the reference; with another
-    dtype, the reference in that precision stands in the program's
-    place."""
+    frames 0.. of the seed's key) against the estimator's reference under
+    ``root``; with another dtype, that reference in that precision stands
+    in the program's place."""
     base = rng.key_of_seed(seed)
     tiles = -(-cfg["width"] * cfg["height"] // cfg["tile_rays"])
     pairs = check.frame_sample(seed, len(images), tiles,
                                traffic["check_tiles"])
-    ref = check.reference_tiles(inputs, cfg, base, pairs, dev)
+    ref = check.reference_tiles(inputs, cfg, base, pairs, dev, root=root)
     if dtype == torch.float32:
         prog = {(f, t): check.tile_rows(images[f], t, cfg["tile_rays"])
                 for f, t in pairs}
     else:
         prog = {k: v[0] for k, v in check.reference_tiles(
-            inputs, cfg, base, pairs, dev, dtype, rules=(False,)).items()}
+            inputs, cfg, base, pairs, dev, dtype, rules=(False,),
+            root=root).items()}
     return check.pixels_off(prog, ref, cfg, traffic)
 
 
@@ -240,7 +243,7 @@ def progressive(ctx: Context):
     record["check_t0"] = time.perf_counter()
     checks = {
         "pixels_off": (frame_checks(inputs, cfg, ctx.traffic, ctx.seed,
-                                    images, dev),
+                                    images, dev, root=ctx.root),
                        ctx.traffic["limits"]["pixels_off"]),
         "overflow_frames": (overflow, 0),
     }
@@ -365,21 +368,26 @@ class Trainer:
 
 
 def step_checks(inputs, cfg: dict, traffic: dict, seed: int, program: dict,
-                start: dict, window: dict, dev, dtype=torch.float32) -> dict:
+                start: dict, window: dict, dev, dtype=torch.float32,
+                root=manifest.ROOT) -> dict:
     """loss_gap, grad_gap, change_gap of ``program`` (first_steps' result)
-    against the reference's first steps, and of ``window`` (followed's
-    result) against the reference's step from the state the program held
-    before it, the worse of the two each; with another dtype, the
-    reference in that precision stands in the program's place."""
+    against the first steps of the estimator's reference under ``root``,
+    and of ``window`` (followed's result) against its step from the state
+    the program held before it, the worse of the two each; with another
+    dtype, that reference in that precision stands in the program's
+    place."""
     base = rng.key_of_seed(seed)
     limits = traffic["limits"]
     n = traffic["reference_steps"]
-    ref = check.reference_steps(inputs, cfg, traffic, base, start, n, dev)
+    ref = check.reference_steps(inputs, cfg, traffic, base, start, n, dev,
+                                root=root)
     if dtype != torch.float32:
         program = check.reference_steps(inputs, cfg, traffic, base, start,
-                                        n, dev, dtype, max_branches=1)[0]
+                                        n, dev, dtype, max_branches=1,
+                                        root=root)[0]
     gaps = check.step_gaps(program, ref, start, limits)
-    at = {"first": window["step"], "moments": window["moments"]}
+    at = {"first": window["step"], "moments": window["moments"],
+          "root": root}
     ref = check.reference_steps(inputs, cfg, traffic, base, window["start"],
                                 1, dev, **at)
     followed = window["program"]
@@ -421,7 +429,7 @@ def trainer(ctx: Context):
     free(dev)
     record["check_t0"] = time.perf_counter()
     gaps = step_checks(inputs, cfg, tr, ctx.seed, program, start, window,
-                       dev)
+                       dev, root=ctx.root)
     checks = {k: (v, tr["limits"][k]) for k, v in gaps.items()}
     return record, checks, failed
 
@@ -435,3 +443,7 @@ def free(dev):
 
 
 LOOPS = {"progressive": progressive, "trainer": trainer}
+# what a cell's check needs of its estimator's reference: render_tile
+# always, and train_loss for a trainer
+REFERENCE_NEEDS = {"progressive": ("render_tile",),
+                   "trainer": ("render_tile", "train_loss")}

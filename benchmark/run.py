@@ -8,7 +8,8 @@ It makes the cell's inputs from its configuration and the seed, sets the
 program up and warms it (set-up), drives the cell's closed loop for
 ``--seconds`` (the window), with ``--trace 1`` reads the per-layer
 metrics from profiled calls after the window, then frees the program's
-state and checks what the window produced against the plain reference.
+state and checks what the window produced against the plain reference
+of the configuration's estimator (benchmark/reference/estimators/).
 Its last line on standard output is one JSON object: correct,
 attempted, failed, metrics (the cell's end-to-end metrics, or with
 ``--trace 1`` its per-layer ones), device, with ``--trace 1`` the
@@ -16,9 +17,11 @@ breakdown, the native libraries this run built in its set-up (a
 checkout's first run builds them) and last the checks, each number
 beside its limit; the checks are also the last lines on standard error.
 
-It exits 2 on a bad argument, 3 without CUDA or with fewer cards than
-the cell asks for, 4 if jax, jaxlib, flax or the JAX package was loaded,
-and prints no result then.
+It exits 2 on a bad argument, or before any set-up where the
+configuration's estimator has no reference that the cell's check can
+call; 3 without CUDA or with fewer cards than the cell asks for; 4 if
+jax, jaxlib, flax or the JAX package was loaded; and prints no result
+then.
 """
 
 from __future__ import annotations
@@ -47,13 +50,18 @@ def run_cell(spec: dict, name: str, seed: int, seconds: float, trace: bool,
     import torch
 
     from benchmark import inputs, loops, manifest
+    from benchmark.reference import estimators
 
     root = manifest.ROOT if root is None else root
     cell = manifest.cell(spec, name)
     cfg = inputs.load_config(cell["config"], root)
     traffic = manifest.traffic(cell["traffic"], root)
+    # a cell whose check has no reference to call fails here, not after
+    # its set-up and window as not correct
+    estimators.load(cfg["estimator"], root,
+                    loops.REFERENCE_NEEDS[traffic["kind"]])
     ctx = loops.Context(cfg, traffic, seed, seconds, trace,
-                        torch.device(device), t_start)
+                        torch.device(device), t_start, root)
     record, checks, failed = loops.LOOPS[traffic["kind"]](ctx)
     print(f"setup {record['setup_s']:.3f} s, window {record['window_s']:.3f}"
           f" s, {record['calls']} calls, check "
@@ -115,8 +123,14 @@ def main(argv=None) -> int:
         print(f"{args.workload} needs {cell['chips']} CUDA device(s); "
               f"found {torch.cuda.device_count()}", file=sys.stderr)
         return 3
-    result = run_cell(spec, args.workload, args.seed, args.seconds,
-                      bool(args.trace), "cuda", T_START)
+    from benchmark.reference import estimators
+
+    try:
+        result = run_cell(spec, args.workload, args.seed, args.seconds,
+                          bool(args.trace), "cuda", T_START)
+    except estimators.Missing as e:
+        print(e, file=sys.stderr)
+        return 2
     found = forbidden_modules()
     if found:
         print(f"loaded in the run's process: {', '.join(found)}",

@@ -47,11 +47,13 @@ def tiny_config(cfg: dict) -> dict:
 
 @pytest.fixture
 def tiny_root(tmp_path) -> Path:
-    """A copy of the benchmark's files in ``tmp_path/benchmark`` with every
+    """A copy of the benchmark's files in ``tmp_path/benchmark`` (traffic
+    mixes, metric readers, the estimators' references) with every
     configuration cut to the tests' size, and BENCHMARK.json beside it."""
     root = tmp_path / "benchmark"
-    for sub in ("traffic", "metrics"):
-        shutil.copytree(BENCH / sub, root / sub)
+    for sub in ("traffic", "metrics", "reference/estimators"):
+        shutil.copytree(BENCH / sub, root / sub,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     (root / "configs").mkdir()
     for p in (BENCH / "configs").glob("*.json"):
         cfg = tiny_config(json.loads(p.read_text()))

@@ -19,7 +19,7 @@ import torch
 from benchmark import check
 from benchmark import inputs as bench_inputs
 from benchmark import loops, manifest, run
-from benchmark.reference import pathtrace, rng
+from benchmark.reference import estimators, pathtrace, rng
 
 from conftest import REPO, tiny_config
 
@@ -56,6 +56,13 @@ def test_reference_equals_the_port_frame(size):
                                     cfg["bounces"])
         rows = min(n, flat.shape[0] - t * n)
         assert torch.equal(hdr[:rows], flat[t * n:t * n + rows])
+
+
+def test_the_shared_estimator_is_the_frozen_reference():
+    """estimator "shared" is checked by pathtrace's own functions."""
+    shared = estimators.load("shared")
+    assert shared.render_tile is pathtrace.render_tile
+    assert shared.train_loss is pathtrace.train_loss
 
 
 def test_reference_follows_the_port_trainer():

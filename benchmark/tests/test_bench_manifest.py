@@ -9,8 +9,9 @@ import re
 import time
 
 import pytest
+import torch
 
-from benchmark import manifest, run
+from benchmark import loops, manifest, run
 
 from conftest import REPO
 
@@ -76,8 +77,9 @@ def test_every_metric_config_and_traffic_has_its_file(spec):
     layers = {}
     for m in spec["per_layer"]:
         layers.setdefault(m["layer"], set()).add(m["name"])
-    assert set(layers) == {"device", "kernels", "candidate build",
-                           "list-tracer host"}
+    assert set(layers) == {"render entry", "estimator and shading",
+                           "backward", "candidate build", "list-tracer host",
+                           "kernels", "device"}
 
 
 def test_a_new_cell_and_metric_need_no_code(tiny_root):
@@ -111,3 +113,117 @@ def test_a_new_cell_and_metric_need_no_code(tiny_root):
     assert set(out["metrics"]) == {"render_mrays", "frame_s_p90", "setup_s",
                                    "dummy_calls"}
     assert out["metrics"]["dummy_calls"]["value"] == out["attempted"]
+
+
+# a reference of a new estimator: the shared one, each call it takes
+# recorded in a file beside it
+DUMMY = """from pathlib import Path
+
+from benchmark.reference import pathtrace
+
+CALLS = Path(__file__).with_name("dummy.calls")
+
+
+def _called(name):
+    with CALLS.open("a") as f:
+        f.write(name + "\\n")
+
+
+def render_tile(*args):
+    _called("render_tile")
+    return pathtrace.render_tile(*args)
+
+
+def train_loss(*args):
+    _called("train_loss")
+    return pathtrace.train_loss(*args)
+"""
+
+
+def _estimator_cell(tiny_root, estimator: str, traffic: str) -> dict:
+    """BENCHMARK.json of the copy with a cell "new.cell" of the traffic mix
+    ``traffic`` on a configuration whose estimator is ``estimator``, and
+    that configuration's file written."""
+    cfg = json.loads((tiny_root / "configs" / "dragon870k_sky.json")
+                     .read_text())
+    cfg["name"], cfg["estimator"] = "new_sky", estimator
+    (tiny_root / "configs" / "new_sky.json").write_text(json.dumps(cfg))
+    spec = json.loads((tiny_root.parent / "BENCHMARK.json").read_text())
+    spec["workloads"].append({"name": "new.cell", "config": "new_sky",
+                              "traffic": traffic, "chips": 1, "why": "x"})
+    like = {"preview": "dragon870k.preview",
+            "inverse": "dragon870k.inverse"}[traffic]
+    for m in spec["end_to_end"]:
+        if like in m.get("workloads", []):
+            m["workloads"].append("new.cell")
+    return spec
+
+
+def _files(root) -> dict:
+    return {p: p.read_bytes() for p in root.parent.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+@pytest.mark.parametrize("traffic,called", [("preview", "render_tile"),
+                                            ("inverse", "train_loss")])
+def test_a_new_estimator_needs_only_its_reference_file(tiny_root,
+                                                       monkeypatch, traffic,
+                                                       called):
+    """A configuration whose estimator is "dummy", with its reference a new
+    file reference/estimators/dummy.py in a copy of the benchmark: the
+    cell's check goes through that file, and no file that was there
+    changes.  The program knows no "dummy" estimator: patched, it renders
+    one as "shared", to which the dummy reference delegates."""
+    from sycl_ray_tracing_tpu_torch.utils import config
+
+    before = _files(tiny_root)
+    spec = _estimator_cell(tiny_root, "dummy", traffic)
+    (tiny_root / "reference" / "estimators" / "dummy.py").write_text(DUMMY)
+    real = config.RenderConfig
+
+    def as_shared(**kw):
+        if kw.get("estimator") == "dummy":
+            kw["estimator"] = "shared"
+        return real(**kw)
+
+    monkeypatch.setattr(config, "RenderConfig", as_shared)
+    out = run.run_cell(spec, "new.cell", 5, 0.2, False, "cpu",
+                       time.perf_counter(), root=tiny_root)
+    assert out["correct"], out["checks"]
+    calls = (tiny_root / "reference" / "estimators" / "dummy.calls")
+    assert called in calls.read_text().split()
+    after = _files(tiny_root)
+    assert all(after.get(p) == b for p, b in before.items())
+
+
+@pytest.mark.parametrize("traffic,module", [("preview", None),
+                                            ("inverse", "render_only")])
+def test_an_estimator_without_its_reference_exits_2_before_setup(
+        tiny_root, monkeypatch, capsys, traffic, module):
+    """An estimator with no reference file, and a trainer cell whose
+    estimator's reference has no train_loss: the run exits 2 with one line
+    naming the file, before any set-up, and prints no result."""
+    name = module or "nowhere"
+    if module:
+        (tiny_root / "reference" / "estimators" / f"{module}.py").write_text(
+            "from benchmark.reference.pathtrace import render_tile\n")
+    spec = _estimator_cell(tiny_root, name, traffic)
+
+    def set_up(ctx):
+        raise AssertionError("the cell's set-up began")
+
+    monkeypatch.setattr(manifest, "load", lambda *a, **kw: spec)
+    monkeypatch.setattr(manifest, "ROOT", tiny_root)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for kind in loops.LOOPS:
+        monkeypatch.setitem(loops.LOOPS, kind, set_up)
+    rc = run.main(["--workload", "new.cell", "--seed", "5", "--seconds",
+                   "1"])
+    out = capsys.readouterr()
+    assert rc == 2 and out.out == ""
+    lines = out.err.strip().splitlines()
+    assert len(lines) == 1
+    assert f"{name}.py" in lines[0]
+    if module:
+        assert "train_loss" in lines[0]

@@ -425,7 +425,9 @@ def trace(scene: Scene, ray_o, ray_d, key, bounces: int,
     ``remat`` checkpoints each bounce; its replay takes the bounce's five
     traversal answers from ``tape`` (keyed (bounce, query)).
     ``impl="plain"`` runs the list tracer's plain torch kernel versions
-    (comparisons only)."""
+    (comparisons only).  Spans: ``trace.bounce`` (bounce, width) around
+    each bounce, ``nee.light`` / ``nee.env`` (bounce) around its light
+    and sky NEE."""
     B = ray_o.shape[0]
     dev = ray_o.device
     backend = _resolve_backend(scene, backend)
@@ -459,11 +461,15 @@ def trace(scene: Scene, ray_o, ray_d, key, bounces: int,
             if bounce == 0:
                 radiance = radiance + torch.where(live_hit[:, None],
                                                   emission, 0.0)
-            direct = _sample_lights_nee(
-                scene, hit, view, diffuse, metal, rough, key, bounce,
-                closest, occl, live_hit, ggx_bug) + _sample_env_nee(
-                scene, hit, view, diffuse, metal, rough, key, bounce,
-                occl, live_hit, ggx_bug)
+            with span("nee.light", bounce=bounce):
+                light = _sample_lights_nee(
+                    scene, hit, view, diffuse, metal, rough, key, bounce,
+                    closest, occl, live_hit, ggx_bug)
+            with span("nee.env", bounce=bounce):
+                env = _sample_env_nee(
+                    scene, hit, view, diffuse, metal, rough, key, bounce,
+                    occl, live_hit, ggx_bug)
+            direct = light + env
             radiance = radiance + torch.where(live_hit[:, None],
                                               direct * throughput, 0.0)
             # env on miss, primary rays only (reference :146-158)

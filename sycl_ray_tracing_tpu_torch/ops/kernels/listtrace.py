@@ -58,7 +58,7 @@ from sycl_ray_tracing_tpu_torch.ops.kernels.cuda_lib import (
     stream_of,
 )
 from sycl_ray_tracing_tpu_torch.ops.safe_math import EPS
-from sycl_ray_tracing_tpu_torch.utils.metrics import host_read, span
+from sycl_ray_tracing_tpu_torch.utils.metrics import host_read, span, tally
 
 RB = 8             # per-ray pass: rays per sort block
 RB_SHARE = 32      # block-shared kernel: rays sharing one candidate list
@@ -365,7 +365,9 @@ def _run_once(scene: ClusterScene, ray_o, ray_d, t_lim, maxc: int, any_hit,
     superclusters a block) take the supercluster-prefiltered build
     (listtrace.py:474-520), whose SC-overflow rows come poisoned (last
     ctn -BIG_T, so unresolved); ``force_dense`` (the escalation pass)
-    keeps the dense build over all K2 clusters."""
+    keeps the dense build over all K2 clusters.  Each pass counts one
+    under COUNTS["query.passes"]."""
+    tally("query.passes")
     with span("query.pass", rays=ray_o.shape[0]):
         return _pass(scene, ray_o, ray_d, t_lim, maxc, any_hit, sort, mask,
                      share, force_dense, impl)

@@ -25,7 +25,8 @@ none):
   * ``COUNTS`` / ``reset_counts()``: counters that are always on, in the
     style of ``listtrace.LAUNCHES``; ``host_read`` counts each blocking
     read of a device value by the host, ``tally`` any other event (the
-    candidate builds: "cand_build.fused", "cand_build.plain").
+    candidate builds: "cand_build.fused", "cand_build.plain"; the list
+    tracer's passes, main or escalation: "query.passes").
 """
 
 from __future__ import annotations

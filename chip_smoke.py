@@ -49,7 +49,8 @@ Phases (any failure exits non-zero):
      and an early stop show; rows 10-12 split into (a) events a call,
      (b) the host's launch path a call and its parts, (c) device time
      a launch, beside the empty kernel's and its ladder), then every
-     probe sweep once (python -m sycl_ray_tracing_tpu_torch.probes: the
+     probe sweep but row_scatter (phase 14's) once (python -m
+     sycl_ray_tracing_tpu_torch.probes: the
      union walk at 8 / 16 / 32 rays a block, the synthetic round's exact,
      SASS and time checks, the feature smokes' split among them), with
      the probe kernels' launch counters reset just before: every probe
@@ -198,6 +199,18 @@ Phases (any failure exits non-zero):
      beside its bound and the plain version's time.  Its kernels entry
      takes its launches from phase 6's counted frame ("frame_870k":
      launches, plain_builds) and phase 9's trainer ("train": the same).
+ 14. The backward's row sum (csrc/row_scatter.cu) against its plain torch
+     version (python -m sycl_ray_tracing_tpu_torch.probes row_scatter):
+     the chunk kernel's registers, spill and occupancy (it fails if it
+     spills); the sums bit for bit, the same bits in 3 runs and one
+     launch counted a call, at the trainer's shapes (262,144 rays and the
+     compacted 1/2, 1/4, 1/8 of it from the [4, 8] material table, int32,
+     and the [2, 12] light rows, int64) and a [2048, 8] table by random
+     indices; a gather_rows backward on the card; each case's time (CUDA
+     events a call; at 262,144 rays the device time of its two kernels a
+     launch) beside its bound, the plain version's time and torch's
+     index_put_(accumulate=True) as library_ms.  Its kernels entry takes
+     its launches from phase 9's trainer ("train": launches).
 
 The second-to-last lines are the card line and one JSON object describing
 each kernel (time, plain version's time, launches, and the bound: the
@@ -1653,6 +1666,9 @@ def cli_phase(card, scene, shared_mean):
         launches = dict(lt.LAUNCHES)
         fused = metrics.COUNTS.get("cand_build.fused", 0)
         plain = metrics.COUNTS.get("cand_build.plain", 0)
+        # three row sums a bounce in each sample's backward
+        row_sums = metrics.COUNTS.get("row_scatter.fused", 0)
+        want_sums = 3 * TRAIN_BOUNCES * TRAIN_SPP * TRAIN_STEPS
         # the fused build runs only above 2 * maxs * 64 clusters
         maxs = max(lt.HIER_MAXS, lt.DEFAULT_MAXC_SHARE // 3)
         big = scene.clusters.num_clusters > 2 * maxs * lt.S_CLUSTER
@@ -1673,6 +1689,9 @@ def cli_phase(card, scene, shared_mean):
             f" {bwd.launches} of them inside the {bwd.calls} backward calls; "
             f"step 0's forward held launch by launch (launches, rays of the "
             f"largest, max |dt|): {hold.held}, each bit-identical")
+        log(f"phase 9 train row sums: {row_sums} launches of the row-sum "
+            f"kernel in the backward calls (3 a bounce and sample: "
+            f"{want_sums})")
         log(f"phase 9 train candidate builds: {fused} fused, {plain} torch "
             f"({scene.clusters.num_clusters} clusters: the supercluster "
             f"build {'runs' if big else 'does not run'} above "
@@ -1684,6 +1703,10 @@ def cli_phase(card, scene, shared_mean):
                                f"fused, {plain} torch")
         phase9["hier_build"] = {"train": dict(launches=fused,
                                               plain_builds=plain)}
+        if row_sums != want_sums:
+            raise RuntimeError(f"the trainer's row sums: {row_sums}, not "
+                               f"{want_sums}")
+        phase9["row_scatter"] = {"train": dict(launches=row_sums)}
         if min(launches.values()) < 1 or any(bwd.launches.values()) \
                 or bwd.calls != TRAIN_STEPS \
                 or hold.held["block_tiles"][0] < 1:
@@ -2012,6 +2035,24 @@ def cand_build_phase(card, dev) -> dict:
                          "cluster.py:784-919)", out["device_ms"],
                          out["plain_ms"], out["work"], 0.0, bounds)
     log(f"phase 13 took {time.perf_counter() - t13:.1f} s, card {card}")
+    return entry
+
+
+def row_scatter_phase(card, dev) -> dict:
+    """Phase 14: the backward's row sum against its plain version (see the
+    module docstring).  Returns its kernels entry."""
+    from sycl_ray_tracing_tpu_torch.probes import bounds, row_scatter
+
+    t14 = time.perf_counter()
+    out = row_scatter.run(dev, log=lambda m: log(f"phase 14 {m}"))
+    entry = kernel_entry("row_scatter", "csrc/row_scatter.cu",
+                         "none (XLA's transpose of the material and light "
+                         "row gathers, sycl_ray_tracing_tpu/models/"
+                         "pathtracer.py)", out["device_ms"], out["plain_ms"],
+                         out["work"], 0.0, bounds)
+    entry["library_ms"] = out["library_ms"]
+    entry["cases"] = out["cases"]
+    log(f"phase 14 took {time.perf_counter() - t14:.1f} s, card {card}")
     return entry
 
 
@@ -2568,7 +2609,8 @@ def main() -> int:
         # every probe sweep once, the probe kernels' counters reset first
         pk.reset_launch_counts()
         lt.reset_launch_counts()
-        run_probes(PROBES, scene, dev, reps=3)
+        run_probes([p for p in PROBES if p != "row_scatter"], scene, dev,
+                   reps=3)   # phase 14 runs it
         torch.cuda.synchronize()
         probe_launches = dict(pk.LAUNCHES)
         log(f"phase 5 probe sweeps: launches {probe_launches}, list kernels "
@@ -2629,6 +2671,12 @@ def main() -> int:
     entry["frame_870k"] = dict(launches=frame_builds["fused"],
                                plain_builds=frame_builds["plain"])
     entry.update(phase9["hier_build"])
+    kernels.append(entry)
+
+    # ---- phase 14: the backward's row sum ----
+    entry = row_scatter_phase(card, dev)
+    entry["launches"] = phase9["row_scatter"]["train"]["launches"]
+    entry.update(phase9["row_scatter"])
     kernels.append(entry)
 
     for k in kernels:

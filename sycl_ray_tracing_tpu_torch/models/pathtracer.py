@@ -71,6 +71,7 @@ from sycl_ray_tracing_tpu_torch.ops.intersect import (
 )
 from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace
 from sycl_ray_tracing_tpu_torch.ops.kernels.listtrace import multi_query
+from sycl_ray_tracing_tpu_torch.ops.kernels.rows import gather_rows
 from sycl_ray_tracing_tpu_torch.ops.rng import fold_in, uniforms
 from sycl_ray_tracing_tpu_torch.ops.safe_math import RAY_OFFSET, dot
 from sycl_ray_tracing_tpu_torch.ops.sampling import (
@@ -329,8 +330,8 @@ def _sample_lights_nee(scene: Scene, hit: Hit, view, diffuse, metal, rough,
     # would make light_pdf explode and NaN-poison the backward pass)
     light_pdf = pdf_area * dist * dist / torch.clamp_min(cos_light, 1e-6)
     light_pdf = torch.where(front, light_pdf, 1.0)
-    light_emission = scene.materials.emission[
-        _material_of_prim(scene, light_tri_idx).long()]
+    light_emission = gather_rows(scene.materials.emission,
+                                 _material_of_prim(scene, light_tri_idx))
     brdf = cook_torrance_eval(diffuse, metal, rough, wi, view, hit.normal)
     brdf_pdf = cook_torrance_pdf(rough, view, wi, hit.normal)
     mis_w = power_heuristic(light_pdf, brdf_pdf)
@@ -349,8 +350,8 @@ def _sample_lights_nee(scene: Scene, hit: Hit, view, diffuse, metal, rough,
     h2 = closest(2, origin_s, wi_s, live & hit.hit & (pdf_s > 0.0) & brdf_pos)
     n_tris = scene.num_triangles
     cos_at_light = torch.clamp_min(dot(h2.normal, -wi_s), 0.0)
-    hit_emission = scene.materials.emission[
-        _material_of_prim(scene, h2.prim).long()]
+    hit_emission = gather_rows(scene.materials.emission,
+                               _material_of_prim(scene, h2.prim))
     is_emitter = torch.any(hit_emission > 0.0, dim=-1) & (h2.prim < n_tris)
     light_area2 = triangle_area(
         scene.triangles[torch.clamp(h2.prim, 0, n_tris - 1).long()])
@@ -645,7 +646,7 @@ def trace_shared(scene: Scene, ray_o, ray_d, key, bounces: int,
         W = ray_o.shape[0]
         live_hit = alive & hit.hit
         if fuse:
-            rows = mat_packed[mid.long()]
+            rows = gather_rows(mat_packed, mid)
             emission, diffuse, metal, rough = (
                 rows[:, 0:3], rows[:, 3:6], rows[:, 6], rows[:, 7])
         else:
@@ -670,7 +671,7 @@ def trace_shared(scene: Scene, ray_o, ray_d, key, bounces: int,
             u = uniforms(key, bounce, _LIGHT, (W, 3), dev)
             pick = torch.clamp_max((u[:, 0] * num_lights).to(torch.int64),
                                    num_lights - 1)
-            lr = light_rows[pick]                        # [W,12]
+            lr = gather_rows(light_rows, pick)           # [W,12]
             lp, ln, area = sample_triangle_uniform(
                 lr[:, 0:3], lr[:, 3:6], lr[:, 6:9], u[:, 1], u[:, 2])
             light_emission = lr[:, 9:12]
@@ -752,7 +753,7 @@ def trace_shared(scene: Scene, ray_o, ray_d, key, bounces: int,
             )
             # light NEE, brdf-sample term through the shared sample's hit
             if fuse:
-                hit_emission = mat_packed[mid2.long()][:, 0:3]
+                hit_emission = gather_rows(mat_packed, mid2)[:, 0:3]
             else:
                 er = emitter_rows[torch.clamp(h2.prim, 0, n_tris - 1).long()]
                 hit_emission, area2 = er[:, 0:3], er[:, 3]

@@ -32,6 +32,7 @@ from sycl_ray_tracing_tpu_torch.ops.envmap import (
     build_sampler,
     sampler_from_numpy,
 )
+from sycl_ray_tracing_tpu_torch.ops.kernels.rows import gather_rows
 from sycl_ray_tracing_tpu_torch.ops.sampling import triangle_area
 from sycl_ray_tracing_tpu_torch.utils.device import resolve_device
 
@@ -63,8 +64,9 @@ class Materials:
 
     def lookup(self, idx: torch.Tensor):
         """Per-ray (emission, diffuse, metalness, roughness) by material
-        index [...]: one row gather of the packed table (scene.py:41)."""
-        rows = self.packed()[idx.long()]
+        index [...]: one row gather of the packed table (scene.py:41),
+        whose gradient is ops/kernels/rows.row_sum."""
+        rows = gather_rows(self.packed(), idx)
         return rows[..., 0:3], rows[..., 3:6], rows[..., 6], rows[..., 7]
 
 

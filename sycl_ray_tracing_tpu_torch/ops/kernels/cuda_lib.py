@@ -1,11 +1,12 @@
 """The port's CUDA library of the main path: csrc/listtrace.cu (the list
-kernels, ops/kernels/listtrace.py) and csrc/hier_build.cu (the fused
-supercluster candidate build, ops/cluster.py), built by nvcc for sm_90a
-into one library at first use and loaded with ctypes, and the two helpers
+kernels, ops/kernels/listtrace.py), csrc/hier_build.cu (the fused
+supercluster candidate build, ops/cluster.py) and csrc/row_scatter.cu (the
+backward's row sums, ops/kernels/rows.py), built by nvcc for sm_90a into
+one library at first use and loaded with ctypes, and the two helpers
 every launcher of the port's kernels shares: the current stream of a
 tensor's device and a built kernel's registers and occupancy.
 
-It sits below both of its users, so the candidate build never imports the
+It sits below all of its users, so the candidate build never imports the
 list tracer to reach its kernel.  Nothing here touches CUDA at import.
 """
 
@@ -20,6 +21,7 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 CSRC = CSRC_DIR / "listtrace.cu"
 HIER_CSRC = CSRC_DIR / "hier_build.cu"
+ROW_CSRC = CSRC_DIR / "row_scatter.cu"
 HEADERS = [CSRC_DIR / "mt8.cuh"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -36,14 +38,15 @@ def nvcc_path() -> str:
 
 
 def load_cuda_library() -> ctypes.CDLL:
-    """Build csrc/listtrace.cu and csrc/hier_build.cu with nvcc (at first
-    use, into the package's build/ directory) into one library and load
-    it.  Raises if the build fails."""
+    """Build csrc/listtrace.cu, csrc/hier_build.cu and csrc/row_scatter.cu
+    with nvcc (at first use, into the package's build/ directory) into one
+    library and load it.  Raises if the build fails."""
     global _cuda_lib
     if _cuda_lib is None:
         from sycl_ray_tracing_tpu_torch.native import build_shared_library
 
-        path = build_shared_library([CSRC, HIER_CSRC], "liblisttrace",
+        path = build_shared_library([CSRC, HIER_CSRC, ROW_CSRC],
+                                    "liblisttrace",
                                     [nvcc_path()], NVCC_FLAGS, HEADERS)
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -53,7 +56,9 @@ def load_cuda_library() -> ctypes.CDLL:
                            ("srt_list_tiles_info", [i, p]),
                            ("srt_hier_build",
                             [p, p] + [p, i] * 3 + [p] * 4 + [i] * 8 + [p]),
-                           ("srt_hier_build_info", [i, p])):
+                           ("srt_hier_build_info", [i, p]),
+                           ("srt_row_sum", [p, p] + [i] * 4 + [p] * 3),
+                           ("srt_row_sum_info", [i] * 3 + [p])):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = args

@@ -3,7 +3,7 @@
     python -m sycl_ray_tracing_tpu_torch.probes [probe ...]
 
 with probes from kernel_shape, phase, chunk, micro_round, feature_smoke,
-hier_build (all when none is named).  Each prints one line per
+hier_build, row_scatter (all when none is named).  Each prints one line per
 measurement; the card's name and power limit come first.  Without a CUDA
 device it raises.
 """
@@ -15,7 +15,7 @@ import sys
 import torch
 
 PROBES = ("kernel_shape", "phase", "chunk", "micro_round", "feature_smoke",
-          "hier_build")
+          "hier_build", "row_scatter")
 N_TRIS = 200_000
 
 
@@ -29,6 +29,7 @@ def run_probes(names, scene, device, reps: int = 5):
         kernel_shape,
         micro_round,
         phase,
+        row_scatter,
     )
 
     for name in names:
@@ -45,6 +46,8 @@ def run_probes(names, scene, device, reps: int = 5):
             feature_smoke.run(device, 4 * reps)
         elif name == "hier_build":
             hier_build.run(device, 4 * reps)
+        elif name == "row_scatter":
+            row_scatter.run(device, 4 * reps)
 
 
 def main(argv=None) -> int:

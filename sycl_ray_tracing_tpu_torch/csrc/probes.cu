@@ -2,7 +2,7 @@
 // kernels that the list tracer's cost-law probes launch (scratch/*.py),
 // bound to PyTorch through a plain C interface loaded with ctypes
 // (ops/kernels/probes.py).  No program path calls them; the probe entry
-// point (python -m sycl_ray_tracing_tpu_torch.probes) and chip_smoke.py do.
+// point (python -m sycl_ray_tracing_tpu_torch.probes) and the card tests do.
 //
 // Built with -fmad=false like listtrace.cu, so every kernel here is
 // bit-identical to its plain torch version.

@@ -24,6 +24,14 @@ import time
 import numpy as np
 import torch
 
+# the denoised blends, like the reference's three OIDN outputs
+# (main.cpp:118-125) but via the in-tree a-trous denoiser
+DENOISE_BLENDS = (1.0, 0.75, 0.5)
+# what the CLI writes into the current directory: the tone-mapped image,
+# the HDR image and one image per denoised blend
+CLI_OUTPUTS = ("RT_output.png", "RT_output.hdr",
+               *(f"RT_output_denoised_{b:g}.png" for b in DENOISE_BLENDS))
+
 
 def main(argv=None, device="cuda") -> int:
     """Run the CLI on ``argv`` (sys.argv[1:] when None); the render runs
@@ -210,16 +218,11 @@ def main(argv=None, device="cuda") -> int:
     hdr_t = torch.as_tensor(np.ascontiguousarray(hdr), device=device)
     write_png("RT_output.png", tonemap(hdr_t).cpu().numpy())
     write_hdr("RT_output.hdr", hdr)
-    outputs = ["RT_output.png", "RT_output.hdr"]
-
-    # denoised blends, like the reference's three OIDN outputs
-    # (main.cpp:118-125) but via the in-tree a-trous denoiser
-    for blend in (1.0, 0.75, 0.5):
+    for blend in DENOISE_BLENDS:
         den = denoise(hdr_t, blend=blend)
-        name = f"RT_output_denoised_{blend:g}.png"
-        write_png(name, tonemap(den).cpu().numpy())
-        outputs.append(name)
-    print("wrote " + ", ".join(outputs))
+        write_png(f"RT_output_denoised_{blend:g}.png",
+                  tonemap(den).cpu().numpy())
+    print("wrote " + ", ".join(CLI_OUTPUTS))
     print(metrics.dump())
     return 0
 

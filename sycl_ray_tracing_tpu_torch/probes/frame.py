@@ -89,12 +89,12 @@ def kernel_ms(fn, kernel: str, reps: int = 20, tries: int = 3) -> float:
     by the profiler: the kernel's own time, without the host's launch
     path that CUDA events around the calls also hold.  Each call of
     ``fn`` launches the kernel once.  The profiler has missed launches of
-    a short run late in a long process (H100, torch 2.11, chip_smoke:
-    none of 20 empty-kernel launches once, 19 of 20 in three runs in a
-    row another time), so each run is recorded after a warm-up cycle of
-    the profiler, and a run in which it did not record all ``reps``
-    launches with their device time is profiled again, up to ``tries``
-    runs in all; then it raises."""
+    a short run late in a long process (H100, torch 2.11, one process
+    that ran every on-card check: none of 20 empty-kernel launches once,
+    19 of 20 in three runs in a row another time), so each run is
+    recorded after a warm-up cycle of the profiler, and a run in which it
+    did not record all ``reps`` launches with their device time is
+    profiled again, up to ``tries`` runs in all; then it raises."""
     fn()
 
     def calls():

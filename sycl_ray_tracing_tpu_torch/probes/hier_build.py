@@ -14,7 +14,7 @@ a block).  Each case's (cand, ctn,
 overflow, covered) must equal the plain version's bit for bit; the
 largest 870k build prints the kernel's time (CUDA events a call, the profiler's
 device time a launch) beside its bound and the plain version's time.
-``tests/test_torch_cand_build.py`` and chip_smoke.py phase 13 run the same
+The card tests of ``tests/test_torch_cand_build.py`` run the same
 holds.
 """
 

@@ -18,8 +18,8 @@ the bound
 (each grad row and index read once, the sums written once), the plain
 version's time, and torch's ``index_put_(accumulate=True)`` (the
 backward the port no longer calls) as ``library_ms``.
-``tests/test_torch_row_scatter.py`` and chip_smoke.py phase 14 run the
-same holds.
+The card tests of ``tests/test_torch_row_scatter.py`` run the same
+holds.
 """
 
 from __future__ import annotations

@@ -10,7 +10,15 @@ may differ between XLA and torch).  A SAH BVH is built by the port's own
 native builder and its tables are given to both packages, as
 tests/test_torch_cluster.py does for the SAH cluster order; Morton
 tables are compared entry for entry.
+
+On a card (marked ``card``): the unfused shading of more than 2048
+materials against the fused one, at least 99% of rays within 1e-3 and
+the means within 1% (tests/test_torch_pathtracer.py's 3-bounce frames);
+every backend's frame against brute force's per pixel within rtol 2e-4
+/ atol 1e-5 (tests/test_integrator.py:293-294).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -22,9 +30,16 @@ from sycl_ray_tracing_tpu.ops import bvh as JB
 from sycl_ray_tracing_tpu.ops import cluster as JC
 from sycl_ray_tracing_tpu.ops import intersect as JI
 from sycl_ray_tracing_tpu.utils.procedural import dragon_standin
+from sycl_ray_tracing_tpu_torch.models import pathtracer as PP
+from sycl_ray_tracing_tpu_torch.models.camera import pbrt_dragon_camera
+from sycl_ray_tracing_tpu_torch.models.scene import add_sphere
 from sycl_ray_tracing_tpu_torch.ops import bvh as PB
 from sycl_ray_tracing_tpu_torch.ops import cluster as PC
 from sycl_ray_tracing_tpu_torch.ops import intersect as PI
+from sycl_ray_tracing_tpu_torch.ops.rng import prng_key
+from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
+from sycl_ray_tracing_tpu_torch.utils.procedural import dragon_scene
+from torch_card import BOUNCES, H, TILE, W, card, tile_both  # noqa: F401
 
 T_TOL = 1e-5
 
@@ -314,3 +329,86 @@ def test_bvh_check_interval_changes_nothing(tris, rays, monkeypatch):
         assert torch.equal(ct[0], outs[0][0][0])
         assert torch.equal(ct[1], outs[0][0][1])
         assert torch.equal(blk, outs[0][1])
+
+
+# ---- on a card ----
+
+# two spheres in the dragon camera's view (tests/test_integrator.py:243-290)
+SPHERES = (((1.5, 0.0, 0.0), 0.5, dict(diffuse=(0.8, 0.3, 0.2))),
+           ((-1.2, 0.5, 0.8), 0.35, dict(metalness=0.5, roughness=0.3)))
+
+
+@pytest.fixture(scope="module")
+def sphere_scene(card):
+    """The 4k dragon with its sky and the two spheres on the card, with
+    clusters for 32768-ray tiles and a SAH BVH; the camera; the key."""
+    s = dragon_scene(4_000, with_sky=True, build_accel=False, device=card)
+    for center, radius, mat in SPHERES:
+        s = add_sphere(s, center, radius, **mat)
+    s = s.build_acceleration(num_rays_hint=TILE)
+    s = s.with_bvh(PB.build_bvh(s.triangles.cpu().numpy(), device=card))
+    return s, pbrt_dragon_camera(card), prng_key(0)
+
+
+def _tile(row, device):
+    """Pixel coordinates of the 512x512 frame's tile from ``row`` on."""
+    pix = torch.arange(row * W, row * W + TILE, device=device)
+    return (pix % W).float(), (pix // W).float()
+
+
+@pytest.mark.card
+def test_sphere_tile_equals_plain_on_the_card(sphere_scene):
+    """The tile from row 288, where primary rays end on the spheres, at 8
+    bounces through the fused list path: the kernels' radiance is the
+    plain twins' bit for bit, certified."""
+    scene, cam, key = sphere_scene
+    px, py = _tile(H * 9 // 16, scene.device)
+    o, d = cam.generate_rays(px + 0.5, py + 0.5, W, H)
+    assert (PP.intersect_scene(scene, o, d, "list").prim
+            >= scene.num_triangles).any()
+    ((rad, aux), (rad_p, _aux_p)), _launches = tile_both(
+        scene, cam, px, py, key, backend="list", estimator="shared")
+    assert torch.equal(rad, rad_p)
+    assert not aux["overflow"] and torch.isfinite(rad).all()
+
+
+@pytest.mark.card
+def test_unfused_materials_agree_with_fused_on_the_card(sphere_scene,
+                                                         monkeypatch):
+    """The materials padded to 2049 rows take the unfused shading: on the
+    first tile, uncompacted so both loops give each ray the same lanes,
+    against the fused path on the unpadded scene."""
+    scene, cam, key = sphere_scene
+    m = scene.materials
+    padded = scene.with_materials(dataclasses.replace(m, **{
+        f: torch.cat([x, x[:1].repeat(2049 - m.count,
+                                      *([1] * (x.dim() - 1)))])
+        for f, x in vars(m).items()}))
+    monkeypatch.setattr(PP, "COMPACT_MIN_B", 1 << 30)
+    px, py = _tile(0, scene.device)
+    with torch.no_grad():
+        rads = [PP.render_rays(s, cam, px, py, W, H, key, 1, BOUNCES,
+                               backend="list", estimator="shared")
+                for s in (scene, padded)]
+    close = torch.isclose(rads[1], rads[0], rtol=1e-3, atol=1e-3).all(-1)
+    assert close.float().mean() >= 0.99
+    m0, m1 = float(rads[0].mean()), float(rads[1].mean())
+    assert abs(m1 - m0) <= 0.01 * abs(m0)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("estimator", ["shared", "parity"])
+def test_backends_equal_brute_force_on_the_card(sphere_scene, estimator):
+    """The 64x64 frame at 2 spp and 3 bounces through the list tracer,
+    the cluster pair tracer and the BVH: certified, brute force's."""
+    scene, cam, key = sphere_scene
+    imgs = {}
+    with torch.no_grad():
+        for be in ("brute", "list", "cluster", "bvh"):
+            cfg = RenderConfig(64, 64, samples=2, bounces=3, intersect=be,
+                               estimator=estimator, tile_rays=TILE)
+            imgs[be], aux = PP.render(scene, cam, cfg, key, with_aux=True)
+            assert not aux["overflow"] and torch.isfinite(imgs[be]).all()
+    for be in ("list", "cluster", "bvh"):
+        torch.testing.assert_close(imgs[be], imgs["brute"], rtol=2e-4,
+                                   atol=1e-5, msg=be)

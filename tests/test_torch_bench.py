@@ -21,7 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import cornell_standin, write_standin
 from sycl_ray_tracing_tpu.models import pathtracer as JP
 from sycl_ray_tracing_tpu.models.camera import (
     pbrt_dragon_camera as jax_dragon_camera,
@@ -31,7 +30,11 @@ from sycl_ray_tracing_tpu.utils.procedural import dragon_scene as jax_dragon
 from sycl_ray_tracing_tpu_torch import bench
 from sycl_ray_tracing_tpu_torch.models.camera import pbrt_dragon_camera
 from sycl_ray_tracing_tpu_torch.ops.rng import prng_key
-from tests.test_torch_examples import (  # noqa: F401 (a fixture)
+from sycl_ray_tracing_tpu_torch.utils.procedural import (
+    cornell_standin,
+    write_standin,
+)
+from test_torch_examples import (  # noqa: F401 (a fixture)
     assert_same_config,
     assert_same_scene,
     jax_frame,

@@ -1,12 +1,13 @@
 """The supercluster candidate build's dispatch, counters and the fused
 kernel's shape checks on the CPU, and on a card the kernel against its
-plain torch version, bit for bit (cand, ctn, overflow, covered).
+plain torch version, bit for bit (cand, ctn, overflow, covered), and the
+870k frame that takes it: its hierarchical lists against the dense
+build, its passes and launches against the plain twins, and the frame
+certified with its builds counted.
 
 The card tests skip without CUDA; on a card:
 
-    python -m pytest -o addopts="" tests/test_torch_cand_build.py
-
-This file imports no JAX: it runs on the card's machine too.
+    python -m pytest -o addopts="" -m card tests/test_torch_cand_build.py
 """
 
 import types
@@ -19,6 +20,12 @@ from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as PL
 from sycl_ray_tracing_tpu_torch.probes import hier_build as HB
 from sycl_ray_tracing_tpu_torch.utils import metrics
 from sycl_ray_tracing_tpu_torch.utils.procedural import dragon_standin
+from torch_card import (  # noqa: F401
+    assert_certified_hits_are_brute_force,
+    card,
+    held_launches,
+    recorded_runs,
+)
 
 BUILDS = ("candidate_clusters_hier", "candidate_clusters_grouped",
           "candidate_clusters")
@@ -172,13 +179,6 @@ RULES = {
 
 
 @pytest.fixture(scope="module")
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the fused build runs only there")
-    return torch.device("cuda")
-
-
-@pytest.fixture(scope="module")
 def card_cases(card):
     return {label: (args, kw) for label, args, kw in HB.mesh_cases(card)}
 
@@ -199,13 +199,99 @@ def test_fused_build_equals_plain_on_the_mesh(card_cases, label):
     assert RULES[label](seen), seen
 
 
+@pytest.fixture(scope="module")
+def bounce870k(card):
+    """The 870k stand-in, one tile's supercluster builds at one bounce
+    (HB.bounce_builds, largest first) and the tile's first passes."""
+    with recorded_runs() as runs:
+        scene, made = HB.bounce_builds(card)
+    return dict(scene=scene, made=made, runs=runs)
+
+
 @pytest.mark.card
-def test_fused_build_equals_plain_on_the_870k_first_bounce(card):
+def test_fused_build_equals_plain_on_the_870k_first_bounce(bounce870k):
     """The 870k stand-in's supercluster builds of one tile at one bounce
     (the primary rays' and the first bounce's fused query, at the main
     pass's shapes) through the kernel, bit for bit the plain version's."""
-    scene, made = HB.bounce_builds(card)
+    made = bounce870k["made"]
     assert made[0][0][4:] == (PL.DEFAULT_MAXC_SHARE, 42, PL.RB_SHARE)
     for args, kw in made:
         _out_p, diff = HB.hold(args, kw)
         assert not diff, f"{args[1].shape[0]} rays: {diff} differ"
+
+
+@pytest.mark.card
+def test_run_equals_plain_on_the_870k_first_bounce(bounce870k):
+    """_run on the first bounce's fused query, kernels against twins."""
+    *args, kw = bounce870k["runs"][1]
+    outs = [PL._run(*args, **dict(kw, impl=impl))
+            for impl in (None, "plain")]
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.card
+def test_certified_hits_equal_brute_force_at_870k(bounce870k):
+    """On a subset of the tile's primary rays."""
+    o, d = (x[::256] for x in bounce870k["runs"][0][1:3])
+    assert_certified_hits_are_brute_force(bounce870k["scene"], o, d)
+
+
+@pytest.mark.card
+def test_hierarchical_lists_agree_with_dense_at_870k(bounce870k):
+    """The first bounce's supercluster build (its fused query's block
+    lists) against the dense build of the same rays, on the lists
+    without SC overflow: the same live counts, the same candidates where
+    the dense list fits, entry-t within the coarser id-bit key's
+    quantum."""
+    (cs, o, d, tl, maxc, maxs, group), kw = bounce870k["made"][0]
+    hc, ctn = PC.candidate_clusters_hier(cs, o, d, tl, maxc, maxs, group,
+                                         **kw)[:2]
+    dc, dt = PC.candidate_clusters_grouped(cs, o, d, tl, maxc, group,
+                                           exact=True, ray_cert=True)[:2]
+    ok = ctn[:, -1] >= 0
+    assert torch.equal((hc >= 0).sum(1)[ok], (dc >= 0).sum(1)[ok])
+    fits = ok & (dc[:, -1] < 0)
+    assert fits.any()
+    assert torch.equal(hc[fits].sort(1).values, dc[fits].sort(1).values)
+    bits = max(PC._id_bits(maxs * PC.S_CLUSTER),
+               PC._id_bits(cs.num_clusters))
+    live = (dc >= 0) & ok[:, None]
+    assert ((ctn - dt).abs()[live]
+            <= 2.0 ** (bits - 23) * torch.maximum(ctn, dt)[live]).all()
+
+
+@pytest.mark.card
+def test_870k_frame_on_the_card(bounce870k):
+    """The 512x512 frame at 8 bounces: every list-kernel launch equals its
+    plain twin's bit for bit, block lists poisoned by SC overflow among
+    them; then, counted, the frame is certified and finite, peaks under
+    20 GiB, and makes one fused supercluster build a block_tiles launch
+    and one torch build an escalation's list_tiles launch."""
+    from sycl_ray_tracing_tpu_torch.models import pathtracer as pt
+    from sycl_ray_tracing_tpu_torch.models.camera import pbrt_dragon_camera
+    from sycl_ray_tracing_tpu_torch.ops import rng
+    from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
+
+    scene = bounce870k["scene"]
+    cam = pbrt_dragon_camera(scene.device)
+    cfg = RenderConfig(512, 512, samples=1, bounces=8, intersect="list",
+                       estimator="shared", tile_rays=32768)
+    key = rng.prng_key(0)
+    with torch.no_grad():
+        with held_launches() as held:
+            pt.render(scene, cam, cfg, key)
+        for name, launches in held.items():
+            assert launches and all(x["same"] for x in launches), name
+        assert any(x["poisoned"] for x in held["block_tiles"])
+        PL.reset_launch_counts()
+        metrics.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        img, aux = pt.render(scene, cam, cfg, key, with_aux=True)
+        torch.cuda.synchronize()
+    assert not aux["overflow"] and torch.isfinite(img).all()
+    assert float(img.mean()) > 1e-4
+    assert torch.cuda.max_memory_allocated() <= 20 << 30
+    fused = metrics.COUNTS.get("cand_build.fused", 0)
+    assert fused >= 1 and fused == PL.LAUNCHES["block_tiles"]
+    assert metrics.COUNTS.get("cand_build.plain", 0) == \
+        PL.LAUNCHES["list_tiles"] >= 1

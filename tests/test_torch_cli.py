@@ -5,9 +5,9 @@ renderer resumed from a JAX-written checkpoint, the denoiser and
 RenderMetrics.
 
 The OBJ + MTL and the .hdr sky are written from the procedural 2k dragon
-scene (chip_smoke.write_obj, the port's write_hdr), so no reference data
-is read.  Each CLI runs with its own temporary directory as the cwd: the
-CLI writes its five outputs there.
+scene (utils.procedural's write_obj, the port's write_hdr), so no
+reference data is read.  Each CLI runs with its own temporary directory
+as the cwd: the CLI writes its five outputs there.
 
 Tolerances: the CLIs' RT_output.hdr per pixel within rtol 1e-4 / atol
 1e-6 (tests/test_torch_parity.py's per-pixel tolerance; the same samples,
@@ -26,7 +26,6 @@ import pytest
 import torch
 
 import main as jax_main
-from chip_smoke import CLI_OUTPUTS, write_obj
 from sycl_ray_tracing_tpu.models import scene as JS
 from sycl_ray_tracing_tpu.models.camera import pbrt_dragon_camera as jax_cam
 from sycl_ray_tracing_tpu.models.progressive import (
@@ -38,6 +37,7 @@ from sycl_ray_tracing_tpu.utils.config import parse_cli as jax_parse_cli
 from sycl_ray_tracing_tpu.utils.denoise import denoise as jax_denoise
 from sycl_ray_tracing_tpu.utils.procedural import dragon_scene as jax_dragon
 from sycl_ray_tracing_tpu_torch import main as port_main
+from sycl_ray_tracing_tpu_torch.main import CLI_OUTPUTS
 from sycl_ray_tracing_tpu_torch.models import scene as PS
 from sycl_ray_tracing_tpu_torch.models.camera import pbrt_dragon_camera
 from sycl_ray_tracing_tpu_torch.models.progressive import (
@@ -57,8 +57,10 @@ from sycl_ray_tracing_tpu_torch.utils.metrics import (
 from sycl_ray_tracing_tpu_torch.utils.procedural import (
     dragon_scene,
     procedural_sky,
+    write_obj,
 )
-from tests.test_torch_cluster import jax_scene_arrays
+from test_torch_cluster import jax_scene_arrays
+from torch_card import card  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -284,3 +286,85 @@ def test_profiler_trace_writes_a_chrome_trace(tmp_path):
     assert json.loads((tmp_path / "trace" / "trace.json").read_text())
     # no CUDA activity on the CPU: no device ops to total
     assert device_op_totals(prof) == {}
+
+
+# ---- on a card ----
+
+CARD_ARGV = ["--w=64", "--h=64", "--bounces=8", "--camera=pbrt_dragon",
+             "--intersect=list", "--estimator=shared"]
+
+
+@pytest.mark.card
+def test_cli_frame_on_the_card(assets, card, tmp_path, monkeypatch, capsys):
+    """The CLI on the card at 4 spp: exit 0, no regrow, the block kernel
+    launched, the five outputs, and RT_output.hdr equal to the rendered
+    image to RGBE precision (each channel within 1/128 of its pixel's
+    largest)."""
+    from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as PL
+    from sycl_ray_tracing_tpu_torch.utils import hdr
+
+    wrote = []
+    write = hdr.write_hdr
+    monkeypatch.setattr(hdr, "write_hdr", lambda path, image: (
+        wrote.append(np.array(image, np.float32)), write(path, image)))
+    PL.reset_launch_counts()
+    argv = [str(assets / "d.obj"), f"--sky={assets / 'sky.hdr'}",
+            "--samples=4", *CARD_ARGV]
+    assert _run_cli(port_main.main, tmp_path, argv, device=card) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert not [ln for ln in out if ln.startswith(("WARNING", "ERROR"))]
+    assert PL.LAUNCHES["block_tiles"] >= 1
+    for name in CLI_OUTPUTS:
+        assert (tmp_path / name).exists(), name
+    img, back = wrote[-1], read_hdr(str(tmp_path / "RT_output.hdr"))
+    assert np.isfinite(img).all() and img.mean() > 1e-3
+    assert (np.abs(back - img)
+            <= np.maximum(back, img).max(axis=-1, keepdims=True) / 128
+            + 1e-30).all()
+
+
+@pytest.mark.card
+def test_cli_resumes_a_checkpoint_on_the_card(assets, card, tmp_path):
+    """One batch saved by ProgressiveRenderer, resumed by the CLI to 2
+    spp: the uninterrupted render's image bit for bit, certified."""
+    from sycl_ray_tracing_tpu_torch.utils.image_io import read_image_float
+    from sycl_ray_tracing_tpu_torch.utils.obj_loader import load_scene
+
+    ck = str(tmp_path / "ck.npz")
+    argv = [str(assets / "d.obj"), f"--sky={assets / 'sky.hdr'}",
+            "--samples=2", f"--checkpoint={ck}", "--checkpoint-batch=1",
+            *CARD_ARGV]
+    cfg = PCFG.parse_cli(argv)[0]
+    scene = load_scene(str(assets / "d.obj"), device=card,
+                       env_map_image=read_image_float(
+                           str(assets / "sky.hdr"), flip_y=True))
+    scene = scene.build_acceleration(num_rays_hint=cfg.tile_rays)
+    cam = pbrt_dragon_camera(card)
+    first = ProgressiveRenderer(scene, cam, cfg, samples_per_batch=1)
+    first.step()
+    first.state.save(ck)
+    assert _run_cli(port_main.main, tmp_path, argv, device=card) == 0
+    resumed = ProgressiveState.load(ck)
+    whole = ProgressiveRenderer(scene, cam, cfg, samples_per_batch=1)
+    whole.run()
+    assert resumed.samples_done == 2 and not resumed.overflow
+    np.testing.assert_array_equal(resumed.image, whole.state.image)
+
+
+@pytest.mark.card
+def test_cli_regrow_on_the_card(assets, card, tmp_path, monkeypatch, capsys):
+    """Clusters of candidate depth 1 leave rays uncertified: the CLI
+    doubles the depth and ends with every ray certified."""
+    build = PS.Scene.build_acceleration
+
+    def shallow(self, *a, **kw):
+        s = build(self, *a, **kw)
+        return s.with_clusters(s.clusters.with_list_maxc(1))
+
+    monkeypatch.setattr(PS.Scene, "build_acceleration", shallow)
+    argv = [str(assets / "d.obj"), f"--sky={assets / 'sky.hdr'}",
+            "--samples=2", *CARD_ARGV]
+    assert _run_cli(port_main.main, tmp_path, argv, device=card) == 0
+    said = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith(("WARNING", "ERROR"))]
+    assert said and not [ln for ln in said if ln.startswith("ERROR")]

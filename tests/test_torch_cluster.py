@@ -18,7 +18,9 @@ from sycl_ray_tracing_tpu_torch.models.scene import (
 )
 from sycl_ray_tracing_tpu_torch.ops import cluster as PC
 from sycl_ray_tracing_tpu_torch.ops.intersect import BIG_T
+from sycl_ray_tracing_tpu_torch.utils import procedural
 from sycl_ray_tracing_tpu_torch.utils.procedural import dragon_scene
+from torch_card import aimed_rays, card  # noqa: F401
 
 
 def jax_scene_arrays(scene) -> dict:
@@ -444,3 +446,65 @@ def test_hier_build_chunking_is_exact(hier_mesh, monkeypatch, grouped):
                                          ray_cert=grouped)
     for a, b in zip(whole, chunked):
         assert torch.equal(a, b)
+
+
+# ---- on a card ----
+
+@pytest.fixture(scope="module")
+def morton_both(card):
+    """The port's 2k stand-in clustered by the default (Morton) build on
+    the card and on the CPU, and 8192 rays toward its triangles, some
+    with a short t_lim and some dead: (card args, CPU args, triangles)."""
+    tris = procedural.dragon_standin(2_000)
+    o, d, dist = aimed_rays(tris)
+    tl = torch.full_like(dist, BIG_T)
+    tl[::5] = 0.5 * dist[::5]
+    tl[::7] = -BIG_T
+    rays = (o, d, tl)
+    return ((PC.build_clusters(tris, device=card),
+             *(x.to(card) for x in rays)),
+            (PC.build_clusters(tris, device="cpu"), *rays), tris)
+
+
+@pytest.mark.card
+def test_morton_build_on_the_card_equals_the_cpu(morton_both):
+    """build_clusters' default order is Morton (morton_order), the same
+    on the card as on the CPU, with the JAX package's default budgets."""
+    (on_card, *_), (on_cpu, *_), tris = morton_both
+    assert torch.equal(on_card.cl_tri_idx.cpu(), on_cpu.cl_tri_idx)
+    assert torch.equal(on_cpu.cl_tri_idx.reshape(-1)[:tris.shape[0]].long(),
+                       torch.from_numpy(PC.morton_order(tris)))
+    assert (on_card.p1_budget, on_card.p2_budget) == (16384, 65536)
+
+
+# (candidate build, its positional arguments after the rays, keywords)
+CARD_BUILDS = {
+    **{f"candidate_clusters exact={e}":
+       (PC.candidate_clusters, (4,), dict(exact=e)) for e in (False, True)},
+    **{f"candidate_clusters_grouped exact={e}":
+       (PC.candidate_clusters_grouped, (8, 32), dict(exact=e, ray_cert=e))
+       for e in (False, True)},
+    **{f"candidate_clusters_hier grouped={g} exact={e}":
+       (PC.candidate_clusters_hier, (8,),
+        dict(grouped=g, exact=e, ray_cert=g and e))
+       for g in (False, True) for e in (False, True)},
+}
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("build", list(CARD_BUILDS))
+def test_candidate_builds_on_the_card_equal_the_cpu(morton_both, build):
+    """Each candidate build at exact False and True (the supercluster
+    build at its default maxs and group) gives the CPU's outputs bit for
+    bit on the card; exact=False poisons full rows that exact=True
+    keeps."""
+    fn, pos, kw = CARD_BUILDS[build]
+    on_card, on_cpu, _tris = morton_both
+    out_k = fn(*on_card, *pos, **kw)
+    out_c = fn(*on_cpu, *pos, **kw)
+    assert len(out_k) == len(out_c)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(out_k, out_c))
+    if build == "candidate_clusters exact=False":
+        keep = fn(*on_cpu, *pos, exact=True)
+        assert (out_c[1][:, -1] == -BIG_T).sum() > \
+            (keep[1][:, -1] == -BIG_T).sum()

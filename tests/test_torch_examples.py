@@ -9,10 +9,10 @@ themselves set up JAX and read fixed paths at import, so they are not
 imported): the scene arrays must be equal, then ``_common.run`` renders,
 checks, writes and reports the port's frame in a temporary cwd, and the
 JAX script's jitted render gives the other.  MIS.obj and cornell_pbr.obj
-are procedural stand-ins written as OBJ + MTL (chip_smoke.mis_standin,
-cornell_standin) under a temporary $SRT_REFERENCE_ROOT.  Both sides take
-the port's SAH cluster order (the JAX package's needs its native library
-built), so they trace the same clusters.
+are procedural stand-ins written as OBJ + MTL (utils.procedural's
+mis_standin, cornell_standin) under a temporary $SRT_REFERENCE_ROOT.
+Both sides take the port's SAH cluster order (the JAX package's needs
+its native library built), so they trace the same clusters.
 
 Backends: configs 1 and 5 have no clusters, so "auto" is brute force on
 both sides.  Config 2's "auto" is the cluster pair tracer in the JAX
@@ -41,7 +41,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import cornell_standin, mis_standin, write_standin
 from sycl_ray_tracing_tpu.models import pathtracer as JP
 from sycl_ray_tracing_tpu.models.camera import Camera as JaxCamera
 from sycl_ray_tracing_tpu.models.camera import mis_camera as jax_mis_camera
@@ -73,7 +72,19 @@ from sycl_ray_tracing_tpu_torch.examples import (
 from sycl_ray_tracing_tpu_torch.models import pathtracer as PP
 from sycl_ray_tracing_tpu_torch.ops import cluster as PC
 from sycl_ray_tracing_tpu_torch.utils.config import REFERENCE_ROOT_ENV
-from tests.test_torch_cluster import jax_scene_arrays
+from sycl_ray_tracing_tpu_torch.utils.procedural import (
+    cornell_standin,
+    mis_standin,
+    write_standin,
+)
+from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as PL
+from test_torch_cluster import jax_scene_arrays
+from torch_card import (  # noqa: F401
+    KERNELS,
+    card,
+    free_port,
+    held_launches,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MIS_SEG = 5     # the MIS stand-in at 334 triangles
@@ -398,3 +409,62 @@ def test_timed_render_warms_up_then_keeps_the_fastest():
 def test_small_flag_matches_jax(argv, monkeypatch):
     monkeypatch.setattr("sys.argv", ["prog"] + argv)
     assert _common.small() == jax_common().small() == _common.small(argv)
+
+
+# ---- on a card ----
+
+# each image config's module and the CPU tests' sizes above
+CARD_SIZES = {
+    "config1_spheres_direct": (config1_spheres_direct, dict(size=32, spp=2)),
+    "config2_obj_bvh": (config2_obj_bvh, dict(size=32, spp=2, tile=256)),
+    "config3_dragon_mis": (config3_dragon_mis,
+                           dict(w=32, h=18, spp=1, tris=2_000, tile=128)),
+    "config4_env_tonemap": (config4_env_tonemap,
+                            dict(w=32, h=18, spp=1, tris=2_000, tile=32768)),
+}
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("name", list(CARD_SIZES))
+def test_config_on_the_card(name, card, reference_root, tmp_path,
+                            monkeypatch, capsys):
+    """_common.run on the card (it checks the mean): certified, finite;
+    each list kernel launches where the path reaches it (list_tiles only
+    above a block list's slots), its first launch its plain twin's."""
+    mod, small = CARD_SIZES[name]
+    monkeypatch.setattr(mod, "SMALL", small)
+    monkeypatch.setattr(config4_env_tonemap, "SKY_RES", (16, 32))
+    args = ((config2_obj_bvh.find_data(config2_obj_bvh.MIS_OBJ),)
+            if mod is config2_obj_bvh else ())
+    ex = mod.build(*args, small=True, device=card)
+    PL.reset_launch_counts()
+    with held_launches(first=1) as held:
+        out, _line = run_port(ex, tmp_path, monkeypatch, capsys)
+    assert out["overflow"] is False and np.isfinite(out["image"]).all()
+    on_list = PP._resolve_backend(ex.scene, ex.config.intersect) == "list"
+    reach = dict(block_tiles=on_list, list_tiles=on_list and (
+        ex.scene.clusters.num_clusters > PL.DEFAULT_MAXC_SHARE))
+    for k in KERNELS:
+        assert (PL.LAUNCHES[k] > 0) == reach[k], (k, PL.LAUNCHES)
+        assert len(held[k]) == reach[k] and all(x["same"] for x in held[k])
+
+
+@pytest.mark.card
+def test_config5_on_one_rank_of_the_card(card, reference_root, tmp_path,
+                                         monkeypatch):
+    """--small on the Cornell stand-in as one torchrun rank: NCCL, exit 0
+    (the diffuse error fell), no list kernel (no clusters)."""
+    import torch.distributed as dist
+
+    for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                     WORLD_SIZE="1", RANK="0", LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.chdir(tmp_path)
+    PL.reset_launch_counts()
+    try:
+        assert config5_inverse_sharded.main(["--small"], device=card) == 0
+        assert dist.get_backend() == "nccl"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert not any(PL.LAUNCHES.values())

@@ -18,6 +18,12 @@ Tolerances:
     as directional derivatives within tests/test_gradients.py:51-132's
     tolerances; the vertices' scale like roughness.
   * remat against no remat: the values equal, gradients within rtol 1e-5.
+
+On a card (marked ``card``), on the main path's tile at 8 bounces: the
+backward launches no list kernel; the kernels' gradient with remat
+within GRAD_RTOL of the largest entry of the one without remat and of the
+plain twins' (float32 sums in another order); AD against a central
+difference within 2e-3 + 5%.
 """
 
 import contextlib
@@ -41,7 +47,9 @@ from sycl_ray_tracing_tpu_torch.ops import envmap as penv
 from sycl_ray_tracing_tpu_torch.ops import rng
 from sycl_ray_tracing_tpu_torch.ops import transform as T
 from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
-from tests.test_torch_cluster import jax_scene_arrays
+from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as PL
+from test_torch_cluster import jax_scene_arrays
+from torch_card import BOUNCES, H, W, card, main_tile  # noqa: F401
 
 PLAIN, COMPACTED = 1 << 30, 1   # COMPACT_MIN_B values forcing each loop
 SEED = 7
@@ -53,6 +61,7 @@ SCALES = ("roughness", "emission", "metalness", "sky")
 SCALAR_TOL = dict(roughness=(2e-2, 5e-4), emission=(1e-2, 1e-6),
                   metalness=(5e-2, 5e-4), sky=(2e-2, 1e-6),
                   dz=(0.1, 2e-3), scale=(2e-2, 5e-4))
+GRAD_RTOL = 1e-4    # on the card: two routes' gradients, of max |g|
 
 
 @contextlib.contextmanager
@@ -324,3 +333,79 @@ def test_scene_helpers_match_jax(scenes):
     assert env.image.grad_fn is not None
     for f in penv.EnvMapSampler._fields[1:]:
         assert torch.equal(getattr(env, f), getattr(want, f)), f
+
+
+# ---- on a card ----
+
+@pytest.fixture(scope="module")
+def tile_grads(card):
+    """d mean / d materials.diffuse of the main path's tile on the card
+    by three routes, {route: (radiance, grad, forward and backward
+    launches)}; "no grad", the launches of the same tile's forward under
+    no_grad; and "fd", the central difference in diffuse[2, 0]."""
+    scene, cam, px, py, key = main_tile(card)
+    mats = scene.materials
+
+    def tile(diffuse, **kw):
+        s = scene.with_materials(dataclasses.replace(mats, diffuse=diffuse))
+        return PP.render_rays(s, cam, px, py, W, H, key, 1, BOUNCES,
+                              estimator="shared", **kw)
+
+    def grads(**kw):
+        d = mats.diffuse.detach().clone().requires_grad_()
+        PL.reset_launch_counts()
+        rad = tile(d, **kw)
+        fwd = dict(PL.LAUNCHES)
+        rad.mean().backward()
+        bwd = {k: n - fwd[k] for k, n in PL.LAUNCHES.items()}
+        return rad.detach(), d.grad, fwd, bwd
+
+    def mean_at(delta):
+        d = mats.diffuse.clone()
+        d[2, 0] += delta
+        with torch.no_grad():
+            return float(tile(d).double().mean())
+
+    out = {"kernels": grads(), "no remat": grads(remat=False),
+           "plain": grads(impl="plain")}
+    PL.reset_launch_counts()
+    with torch.no_grad():
+        tile(mats.diffuse)
+    out["no grad"] = dict(PL.LAUNCHES)
+    out["fd"] = (mean_at(1e-2) - mean_at(-1e-2)) / 2e-2
+    return out
+
+
+@pytest.mark.card
+def test_backward_launches_no_list_kernel_on_the_card(tile_grads):
+    """The forward launches both list kernels, as often as the same
+    tile's forward under no_grad (no pass falls back to the plain twins);
+    the backward, remat's replay included, launches none: it reuses the
+    recorded answers."""
+    _rad, g, fwd, bwd = tile_grads["kernels"]
+    assert min(fwd.values()) >= 1, fwd
+    for route in ("kernels", "no remat"):
+        assert tile_grads[route][2] == tile_grads["no grad"], route
+    assert not any(bwd.values()), bwd
+    assert not any(tile_grads["no remat"][3].values())
+    assert torch.isfinite(g).all() and float(g.sum()) != 0.0
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("route", ["no remat", "plain"])
+def test_gradients_agree_on_the_card(tile_grads, route):
+    """Against the kernels with remat: the same radiance bit for bit,
+    gradients within GRAD_RTOL of the largest entry."""
+    rad, g = tile_grads[route][:2]
+    rad_k, g_k = tile_grads["kernels"][:2]
+    assert torch.equal(rad, rad_k)
+    assert float((g - g_k).abs().max()) <= GRAD_RTOL * float(
+        g.abs().max())
+
+
+@pytest.mark.card
+def test_gradient_equals_central_difference_on_the_card(tile_grads):
+    """d mean / d diffuse[2, 0] by AD against the central difference."""
+    ad = float(tile_grads["kernels"][1][2, 0])
+    fd = tile_grads["fd"]
+    assert abs(ad - fd) <= 2e-3 + 0.05 * abs(fd), (ad, fd)

@@ -21,7 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_obj
 from sycl_ray_tracing_tpu import native as JN
 from sycl_ray_tracing_tpu.models import pathtracer as JP
 from sycl_ray_tracing_tpu.models.camera import pbrt_dragon_camera as jax_cam
@@ -42,8 +41,9 @@ from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
 from sycl_ray_tracing_tpu_torch.utils.procedural import (
     dragon_scene,
     procedural_sky,
+    write_obj,
 )
-from tests.test_torch_native import JAX_DIR
+from test_torch_native import JAX_DIR
 
 HEADER = b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
 PARSED_FIELDS = ("triangles", "material_indices", "emissive_indices",

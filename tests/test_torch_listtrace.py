@@ -24,6 +24,22 @@ from sycl_ray_tracing_tpu.utils.procedural import dragon_standin
 from sycl_ray_tracing_tpu_torch.ops import cluster as PC
 from sycl_ray_tracing_tpu_torch.ops.intersect import BIG_T, intersect_triangles
 from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as PL
+from sycl_ray_tracing_tpu_torch.ops.kernels import probes as PK
+from sycl_ray_tracing_tpu_torch.ops.kernels import rows as RW
+from sycl_ray_tracing_tpu_torch.utils import procedural
+from torch_card import (  # noqa: F401
+    BOUNCES,
+    H,
+    KERNELS,
+    TILE,
+    W,
+    aimed_rays,
+    assert_certified_hits_are_brute_force,
+    card,
+    held_launches,
+    main_tile,
+    recorded_runs,
+)
 
 T_TOL = 1e-5
 
@@ -367,3 +383,119 @@ def test_poisoned_last_slot_is_not_walked(big_mesh):
     c_cut[:, -1] = k2
     at2, ar2, _stop = PL.list_tiles(c_cut, t, rays, tiles)
     assert torch.equal(at, at2) and torch.equal(ar, ar2)
+
+
+# ---- on a card ----
+
+# each hand-written kernel's *_info call, at the shapes the callers build
+INFOS = {
+    "block_tiles": PL.block_tiles_info,
+    **{f"list_tiles rays_per_block={k}": (lambda k=k: PL.list_tiles_info(k))
+       for k in PL.LIST_RAYS_PER_BLOCK},
+    **{f"list_tiles_min maxc={m}":
+       (lambda m=m: PK.list_tiles_min_info(m, PL.MAX_CLUSTERS + 1))
+       for m in (32, 48)},
+    **{f"round_probe {v} sub-blocks={sb}":
+       (lambda v=v, sb=sb: PK.round_probe_info(v, sb))
+       for v in PK.ROUND_VARIANTS for sb in (1, 32)},
+    "hier_build maxs=42": lambda: PC.hier_build_info(42),
+    **{f"row_sum {r}x{c} {'int64' if i64 else 'int32'}":
+       (lambda r=r, c=c, i64=i64: RW.row_sum_info(r, c, i64))
+       for r, c in ((4, 8), (2, 12), (2048, 8)) for i64 in (False, True)},
+}
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kernel", list(INFOS))
+def test_kernel_builds_without_spilling(card, kernel):
+    """Each kernel builds from the checkout's sources and spills nothing
+    to local memory; the union walk's block is LIST_MIN_RAYS warps and a
+    producer."""
+    info = INFOS[kernel]()
+    assert info["local_bytes"] == 0, info
+    assert info["registers"] > 0 and info["blocks_per_sm"] > 0, info
+    if kernel.startswith("list_tiles_min"):
+        assert info["threads"] == 32 * (PK.LIST_MIN_RAYS + 1)
+
+
+@pytest.fixture(scope="module")
+def frame_run(card):
+    """The 200k dragon's 512x512 frame at 8 bounces (shared estimator) on
+    the card, every list-kernel launch held, the first passes recorded."""
+    from sycl_ray_tracing_tpu_torch.models import pathtracer as pt
+    from sycl_ray_tracing_tpu_torch.ops import rng
+    from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
+
+    scene, cam = main_tile(card)[:2]
+    cfg = RenderConfig(W, H, samples=1, bounces=BOUNCES, intersect="list",
+                       estimator="shared", tile_rays=TILE)
+    with torch.no_grad(), held_launches() as held, recorded_runs() as runs:
+        pt.render(scene, cam, cfg, rng.prng_key(0))
+    return dict(scene=scene, held=held, runs=runs)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_kernels_equal_plain_on_the_main_path(frame_run, kernel):
+    """Every launch of the frame (main passes, escalations) is its plain
+    twin's bit for bit, block launches the guard cut short among them."""
+    launches = frame_run["held"][kernel]
+    assert launches and all(x["same"] for x in launches), launches
+    if kernel == "block_tiles":
+        assert any(x["stopped"] for x in launches), launches
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("which", [0, 1], ids=["primary", "bounce1"])
+def test_run_equals_plain_on_the_main_path(frame_run, which):
+    """_run's (t, packed, resolved, overflow), kernels against twins."""
+    *args, kw = frame_run["runs"][which]
+    outs = [PL._run(*args, **dict(kw, impl=impl))
+            for impl in (None, "plain")]
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.card
+def test_certified_hits_equal_brute_force_on_the_card(frame_run):
+    """On a subset of the first tile's primary rays."""
+    o, d = (x[::256] for x in frame_run["runs"][0][1:3])
+    assert_certified_hits_are_brute_force(frame_run["scene"], o, d)
+
+
+@pytest.mark.card
+def test_list_path_on_morton_clusters_equals_plain(card):
+    """The JAX API's list-path calls on the default (Morton) clusters of
+    the 2k stand-in at candidate depth 3 (block lists of 12 slots,
+    escalation at 24), where both kernels launch: multi_query (a closest-
+    hit and an any-hit query fused), _run and intersect_list equal their
+    plain twins bit for bit, multi_query certifies every ray and its
+    closest hits are brute force's."""
+    tris_np = procedural.dragon_standin(2_000)
+    cs = PC.build_clusters(tris_np, device=card).with_list_maxc(3)
+    o, d, dist = (x.to(card) for x in aimed_rays(tris_np))
+    tris, t_any = torch.tensor(tris_np, device=card), 1.5 * dist
+    queries = [(o, d, None, None), (o, d, t_any, None, True)]
+    PL.reset_launch_counts()
+    of_k, of_p = [], []
+    res_k, ovf_k = PL.multi_query(cs, queries)
+    hit_k = PL.intersect_list(cs, tris, o, d, of_k)
+    assert min(PL.LAUNCHES.values()) >= 1, PL.LAUNCHES
+    res_p, ovf_p = PL.multi_query(cs, queries, impl="plain")
+    hit_p = PL.intersect_list(cs, tris, o, d, of_p, impl="plain")
+    assert not bool(ovf_k) and not bool(ovf_p)
+    assert all(torch.equal(a, b) for qk, qp in zip(res_k, res_p)
+               for a, b in zip(qk, qp))
+    assert bool(of_k[0]) == bool(of_p[0])
+    assert all(torch.equal(a, b) for a, b in zip(hit_k, hit_p))
+    both = torch.cat([o, o]), torch.cat([d, d])
+    t_lim = torch.cat([torch.full_like(t_any, BIG_T), t_any])
+    ah = torch.arange(2 * 8192, device=card) >= 8192
+    maxc = PL._default_maxc(True, cs)
+    runs = [PL._run(cs, *both, t_lim, maxc, ah, share=True, impl=impl)
+            for impl in (None, "plain")]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    t_mq, prim_mq = PL.packed_to_prim(cs, *res_k[0])
+    ref = intersect_triangles(o, d, tris)
+    assert torch.equal(prim_mq.long(),
+                       torch.where(ref.hit, ref.prim.long(), -1))
+    assert ((t_mq - ref.t).abs()[ref.hit] <= T_TOL).all()

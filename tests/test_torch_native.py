@@ -76,7 +76,6 @@ sys.addaudithook(hook)
 import sycl_ray_tracing_tpu_torch as p
 mods = [importlib.import_module(m.name)
         for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]
-import chip_smoke
 from sycl_ray_tracing_tpu_torch import native
 from sycl_ray_tracing_tpu_torch.ops.cluster import sah_order
 from sycl_ray_tracing_tpu_torch.utils.procedural import dragon_standin

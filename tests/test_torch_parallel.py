@@ -13,15 +13,16 @@ the same mesh cells); the 8-rank frame's mean equal to the recorded
 0.24613 to its five printed digits.
 """
 
+import dataclasses
 import json
 import os
-import socket
 import subprocess
 import sys
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from sycl_ray_tracing_tpu.models.camera import pbrt_dragon_camera as jax_cam
 from sycl_ray_tracing_tpu.parallel import mesh as JM
@@ -29,17 +30,18 @@ from sycl_ray_tracing_tpu.parallel.render import render_sharded as jax_sharded
 from sycl_ray_tracing_tpu.utils.config import RenderConfig as JaxConfig
 from sycl_ray_tracing_tpu.utils.procedural import dragon_scene as jax_dragon
 from sycl_ray_tracing_tpu_torch.parallel import mesh as PM
-from tests.test_torch_cluster import jax_scene_arrays
+from test_torch_cluster import jax_scene_arrays
+from torch_card import (  # noqa: F401
+    card,
+    free_port,
+    held_launches,
+    main_tile,
+    one_rank_group,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_distributed_worker.py")
 RANK_TIMEOUT = 240      # seconds each rank may take
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def run_ranks(task: str, world: int, out, spec: dict, scene=None) -> list:
@@ -50,7 +52,7 @@ def run_ranks(task: str, world: int, out, spec: dict, scene=None) -> list:
     if scene is not None:
         np.savez(os.path.join(out, "scene.npz"), **scene)
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    port = str(_free_port())
+    port = str(free_port())
     procs = [subprocess.Popen(
         [sys.executable, WORKER, task, str(r), str(world), port, str(out)],
         env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
@@ -132,3 +134,34 @@ def test_render_sharded_8_ranks_list_frame(tmp_path):
     assert img.shape == (8, 8, 3) and np.isfinite(img).all()
     assert f"{float(img.mean()):.5f}" == recorded
 
+
+
+@pytest.mark.card
+def test_render_sharded_on_one_rank_of_the_card(card):
+    """The 200k dragon's 512x512 frame at 8 bounces in one render_rays
+    call on a one-rank NCCL group: every launch (up to 786,432 rays) is
+    its plain twin's bit for bit; again, the same image, under 20 GiB;
+    its mean within 2% of the tiled render's (other random streams)."""
+    from sycl_ray_tracing_tpu_torch.models import pathtracer as pt
+    from sycl_ray_tracing_tpu_torch.ops.rng import prng_key
+    from sycl_ray_tracing_tpu_torch.parallel.render import render_sharded
+    from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
+
+    scene, cam = main_tile(card)[:2]
+    cfg = RenderConfig(512, 512, samples=1, bounces=8, intersect="list",
+                       estimator="shared")
+    key = prng_key(0)
+    with torch.no_grad(), one_rank_group(card):
+        mesh = PM.make_mesh(1, 1)
+        with held_launches() as held:
+            img = render_sharded(scene, cam, cfg, key, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        again = render_sharded(scene, cam, cfg, key, mesh)
+        peak = torch.cuda.max_memory_allocated()
+        tiled = pt.render(scene, cam, dataclasses.replace(
+            cfg, tile_rays=32768), key)
+    for name, launches in held.items():
+        assert launches and all(x["same"] for x in launches), name
+    assert torch.equal(again, img) and torch.isfinite(img).all()
+    assert peak <= 20 << 30
+    assert abs(float(img.mean()) / float(tiled.mean()) - 1) <= 0.02

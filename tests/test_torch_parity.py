@@ -37,7 +37,8 @@ from sycl_ray_tracing_tpu_torch.models.scene import Materials, scene_from_numpy
 from sycl_ray_tracing_tpu_torch.ops import bvh as PB
 from sycl_ray_tracing_tpu_torch.ops import rng
 from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
-from tests.test_torch_cluster import jax_scene_arrays
+from test_torch_cluster import jax_scene_arrays
+from torch_card import card, main_tile, tile_both  # noqa: F401
 
 W = H = 8
 SEED = 3
@@ -280,3 +281,16 @@ def test_parity_gradient_matches_jax(scenes, jax_parity_b1, monkeypatch,
     g = diffuse.grad.numpy()
     assert np.isfinite(g).all() and np.abs(g).sum() > 0
     np.testing.assert_allclose(g, jg, rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.card
+def test_parity_tile_equals_plain_on_the_card(card):
+    """One 32768-ray tile of the 200k dragon's 512x512 frame at 8
+    bounces through the parity estimator's 5 queries a bounce on the list
+    tracer: both list kernels launch, and the radiance is the plain
+    twins' bit for bit, certified and finite."""
+    ((rad, aux), (rad_p, _aux_p)), launches = tile_both(
+        *main_tile(card), backend="list", estimator="parity")
+    assert min(launches.values()) >= 1, launches
+    assert torch.equal(rad, rad_p)
+    assert not aux["overflow"] and torch.isfinite(rad).all()

@@ -26,7 +26,8 @@ from sycl_ray_tracing_tpu_torch.ops import rng
 from sycl_ray_tracing_tpu_torch.ops.bvh import build_bvh
 from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as PL
 from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
-from tests.test_torch_cluster import jax_scene_arrays
+from test_torch_cluster import jax_scene_arrays
+from torch_card import card, main_tile, tile_both  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -204,3 +205,15 @@ def test_spheres_raise(scenes):
     np.testing.assert_allclose(
         _port_4x4(ps, intersect="list", estimator="shared"), ji, rtol=1e-4,
         atol=1e-6)
+
+
+@pytest.mark.card
+def test_tile_equals_plain_on_the_card(card):
+    """One 32768-ray tile of the 200k dragon's 512x512 frame at 8
+    bounces, shared estimator: both list kernels launch, and the radiance
+    is the plain twins' bit for bit, certified and finite."""
+    ((rad, aux), (rad_p, _aux_p)), launches = tile_both(
+        *main_tile(card), estimator="shared")
+    assert min(launches.values()) >= 1, launches
+    assert torch.equal(rad, rad_p)
+    assert not aux["overflow"] and torch.isfinite(rad).all()

@@ -37,6 +37,7 @@ from sycl_ray_tracing_tpu_torch.probes.common import (
     surface_wavefront,
 )
 from sycl_ray_tracing_tpu_torch.utils import procedural
+from torch_card import card, main_tile  # noqa: F401
 
 SCRATCH = Path(__file__).resolve().parents[1] / "scratch"
 T_TOL = 1e-5
@@ -171,8 +172,8 @@ def test_smoke_gather_random_matches_pallas_smoke(seed):
 @pytest.mark.parametrize("inputs", ["script", "random"])
 def test_smoke_gather_plain_adds_lanes_in_order(inputs):
     """smoke_gather_plain equals a float32 numpy loop that adds the lanes
-    in order, bit for bit.  On the random inputs (the ones chip_smoke holds
-    the kernel to) the reversed order gives other bits: a kernel that
+    in order, bit for bit.  On the random inputs (the ones the card test
+    holds the kernel to) the reversed order gives other bits: a kernel that
     reordered the sum would fail that hold."""
     w = (feature_smoke.gather_inputs("cpu") if inputs == "script"
          else feature_smoke.gather_random_inputs("cpu"))
@@ -215,7 +216,7 @@ def test_smoke_rank_select_matches_pallas_smoke2():
 
 @pytest.mark.parametrize("name", list(feature_smoke.RANK_SELECT_DENSITIES))
 def test_smoke_rank_select_random_matches_pallas_smoke2(name):
-    """The masks chip_smoke holds the kernel to (5%, 20%, every column and
+    """The masks the card test holds the kernel to (5%, 20%, every column and
     no column set; entries exactly 0.5, which is not set, and the next
     float above it), on a normal table: pallas_smoke2.py's kernel in
     interpret mode adds in ascending columns as the plain version does,
@@ -247,7 +248,7 @@ def test_smoke_rank_select_random_matches_pallas_smoke2(name):
 def test_smoke_rank_select_plain_adds_columns_in_order(inputs):
     """smoke_rank_select_plain equals a float32 numpy loop that adds the
     set columns' rows in ascending order, bit for bit.  On the random
-    inputs (the 5% mask chip_smoke holds the kernel to) the reversed order
+    inputs (the 5% mask the card test holds the kernel to) the reversed order
     gives other bits, on the script's arange table it does not: only the
     random table catches a kernel that reordered the sum."""
     w = (feature_smoke.rank_select_inputs("cpu") if inputs == "script"
@@ -980,3 +981,110 @@ def test_frame_build_ms_records_and_restores(monkeypatch):
     assert len(replayed) == 1 and len(replayed[0]) == 4
     assert set(builds) <= set(frame.BUILDS)
     assert PL.candidate_clusters_grouped is PC.candidate_clusters_grouped
+
+
+# ---- on a card: each probe kernel against its plain twin ----------------
+
+@pytest.fixture(scope="module")
+def shape_work(card):
+    """kernel_shape's sorted 98,304-ray surface wavefront over the 200k
+    dragon on the card, with its per-ray and block lists."""
+    from sycl_ray_tracing_tpu_torch.probes import kernel_shape
+
+    with torch.no_grad():
+        return kernel_shape.workload(main_tile(card)[0])
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("rays_per_block", [None, *PL.LIST_RAYS_PER_BLOCK],
+                         ids=lambda k: "block_tiles" if k is None
+                         else f"list_tiles rays_per_block={k}")
+def test_list_kernels_equal_plain_on_kernel_shape(shape_work,
+                                                  rays_per_block):
+    """block_tiles on the maxc-96 block lists, list_tiles at each rays per
+    block on the maxc-32 lists: bit for bit, the guard stopping lists."""
+    from sycl_ray_tracing_tpu_torch.probes import kernel_shape
+
+    w = shape_work
+    if rays_per_block is None:
+        cand, ctn = kernel_shape.block_lists(w, kernel_shape.SHARE_MAXC)
+        args = (cand, ctn, w["rays"], w["tris"])
+        got, want = PL.block_tiles_cuda(*args), PL.block_tiles_plain(*args)
+    else:
+        cand, ctn = kernel_shape.per_ray_lists(w, 32)
+        args = (cand, ctn, w["rays"], w["tris"])
+        got = PL.list_tiles_cuda(*args, rays_per_block)
+        want = PL.list_tiles_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (want[2] < PL.list_counts(cand, w["k2"])).any()
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("maxc", [32, 48])
+def test_list_tiles_min_equals_plain_on_the_card(shape_work, maxc):
+    """The union walk on the wavefront's per-ray lists."""
+    from sycl_ray_tracing_tpu_torch.probes import kernel_shape
+
+    cand, _ctn = kernel_shape.per_ray_lists(shape_work, maxc)
+    args = (cand, shape_work["rays"], shape_work["tris"])
+    assert torch.equal(PK.list_tiles_min(*args),
+                       PK.list_tiles_min_plain(*args))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("variant", PK.ROUND_VARIANTS)
+def test_round_probe_equals_plain_on_the_card(card, variant):
+    """The synthetic round at 1 / 8 / 32 sub-blocks from the probes'
+    initial 0 and, for the MT variants, from +inf (the least t over lanes
+    and rounds: a skipped lane or round shows)."""
+    w = micro_round.workload(card)
+    inits = ((0.0, micro_round.INF) if variant in micro_round.MT_VARIANTS
+             else (0.0,))
+    for init in inits:
+        want = PK.round_probe(w["cand"], w["tris"], variant, impl="plain",
+                              init=init)
+        for sb in micro_round.SUBBLOCKS:
+            got = PK.round_probe(w["cand"], w["tris"], variant, sb,
+                                 init=init)
+            assert torch.equal(got, want), (init, sb)
+
+
+@pytest.mark.card
+def test_round_probe_sass_keeps_the_mt_work(card):
+    """nvcc kept an MT body per lane of the thread in each MT variant
+    (sass_check raises where it did not)."""
+    micro_round.sass_check()
+
+
+@pytest.mark.card
+def test_feature_smokes_equal_plain_on_random_inputs(card):
+    """Every smoke kernel on seeded random inputs where the lanes' order
+    and the while loop's early stop show (hold_random raises)."""
+    feature_smoke.hold_random(card)
+
+
+SCRIPT_SMOKES = ["smoke_gather", "smoke_rank_select",
+                 *(f"mosaic_probe {f}" for f in PK.MOSAIC_FEATURES)]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kernel", SCRIPT_SMOKES)
+def test_feature_smokes_equal_plain_on_the_scripts_inputs(card, kernel):
+    """On the scripts' inputs, against the twins and closed forms."""
+    if kernel == "smoke_gather":
+        w = feature_smoke.gather_inputs(card)
+        args, want = ((w["cid"], w["table"], w["rays"]),
+                      feature_smoke.gather_want(w))
+        fn = PK.smoke_gather
+    elif kernel == "smoke_rank_select":
+        w = feature_smoke.rank_select_inputs(card)
+        args, want = ((w["mask"], w["table"]),
+                      feature_smoke.rank_select_want(w))
+        fn = PK.smoke_rank_select
+    else:
+        w = feature_smoke.mosaic_inputs(card)
+        args = (w["ns"], w["cand"], w["x"], kernel.split()[1])
+        want, fn = None, PK.mosaic_probe
+    out = fn(*args)
+    assert torch.equal(out, fn(*args, impl="plain"))
+    assert want is None or torch.equal(out, want)

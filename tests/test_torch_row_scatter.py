@@ -6,7 +6,7 @@ through it against plain indexing, and on a card the kernel
 
 The card tests skip without CUDA; on a card:
 
-    python -m pytest -o addopts="" tests/test_torch_row_scatter.py
+    python -m pytest -o addopts="" -m card tests/test_torch_row_scatter.py
 
 This file imports no JAX: it runs on the card's machine too.
 
@@ -29,6 +29,7 @@ from sycl_ray_tracing_tpu_torch.ops import rng
 from sycl_ray_tracing_tpu_torch.ops.kernels import rows as RW
 from sycl_ray_tracing_tpu_torch.utils import metrics
 from sycl_ray_tracing_tpu_torch.utils.procedural import dragon_scene
+from torch_card import card  # noqa: F401
 
 WIDTHS = (1, 255, 2048, 2049, 262_144)
 SHAPES = ((4, 8), (2, 12), (2048, 8))
@@ -225,13 +226,6 @@ def test_bounce_gradients_through_gather_rows(scene, estimator, min_b,
         assert float((a - b).abs().max()) <= tol, name
 
 
-@pytest.fixture(scope="module")
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the row-sum kernel runs only there")
-    return torch.device("cuda")
-
-
 @pytest.mark.card
 @pytest.mark.parametrize("idx64", [False, True], ids=["int32", "int64"])
 @pytest.mark.parametrize("skew", [False, True], ids=["uniform", "skewed"])
@@ -251,3 +245,16 @@ def test_kernel_equals_plain_on_a_card(card, W, shape, skew, idx64):
         assert torch.equal(got.cpu().view(torch.int32),
                            want.view(torch.int32))
     assert metrics.COUNTS["row_scatter.fused"] == before + 3
+
+
+@pytest.mark.card
+def test_gather_rows_backward_on_a_card(card):
+    """A gather's backward through gather_rows on the card at the frame's
+    width: one kernel launch, the plain version's bits."""
+    grad, idx = _inputs(262_144, 4, 8, True, device=card)
+    table = torch.rand((4, 8), device=card, requires_grad=True)
+    before = metrics.COUNTS.get("row_scatter.fused", 0)
+    (g,) = torch.autograd.grad(RW.gather_rows(table, idx), table, grad)
+    assert metrics.COUNTS["row_scatter.fused"] == before + 1
+    want = RW.row_sum_plain(grad.cpu(), idx.cpu(), 4)
+    assert torch.equal(g.cpu().view(torch.int32), want.view(torch.int32))

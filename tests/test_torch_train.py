@@ -27,7 +27,15 @@ from sycl_ray_tracing_tpu_torch.models.camera import pbrt_dragon_camera
 from sycl_ray_tracing_tpu_torch.models.scene import scene_from_numpy
 from sycl_ray_tracing_tpu_torch.parallel import mesh as PM
 from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
-from tests.test_torch_parallel import run_ranks, small_scene  # noqa: F401
+from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace as PL
+from sycl_ray_tracing_tpu_torch.utils import metrics
+from test_torch_parallel import run_ranks, small_scene  # noqa: F401
+from torch_card import (  # noqa: F401
+    card,
+    held_launches,
+    main_tile,
+    one_rank_group,
+)
 
 
 def test_train_step_4_ranks_matches_jax(small_scene, tmp_path):
@@ -124,3 +132,41 @@ def test_train_run_matches_optax_adam(small_scene):
                                atol=1e-6)
     assert out["err0_d"] == pytest.approx(float(jnp.abs(
         init.diffuse - true_mats.diffuse).mean()), rel=1e-6)
+
+
+@pytest.mark.card
+def test_train_run_on_one_rank_of_the_card(card, monkeypatch):
+    """Five steps on a one-rank NCCL group, the 200k dragon at 128x128,
+    4 spp, 2 bounces: finite losses and gradients, the diffuse error
+    falls; both list kernels launch, the first 8 of each their plain
+    twins' bit for bit, none in a backward; three row sums a bounce and
+    sample; no fused build (it runs above 2 * maxs * 64 clusters)."""
+    scene, cam = main_tile(card)[:2]
+    grad, in_bwd = torch.autograd.grad, []
+
+    def counted(*args, **kw):
+        before = sum(PL.LAUNCHES.values())
+        out = grad(*args, **kw)
+        in_bwd.append(sum(PL.LAUNCHES.values()) - before)
+        return out
+
+    monkeypatch.setattr(torch.autograd, "grad", counted)
+    cfg = RenderConfig(128, 128, samples=4, bounces=2, tile_rays=None)
+    PL.reset_launch_counts()
+    metrics.reset_counts()
+    with one_rank_group(card), held_launches(first=8) as held:
+        out = train.run(scene, cam, cfg, 5, PM.make_mesh(1, 1),
+                        log=lambda *a: None)
+    g = torch.cat([x.flatten() for x in out["grads"]])
+    assert np.isfinite(out["losses"]).all()
+    assert torch.isfinite(g).all() and (g != 0).any()
+    assert out["err_d"] < out["err0_d"]
+    assert min(PL.LAUNCHES.values()) >= 1, PL.LAUNCHES
+    for name, launches in held.items():
+        assert launches and all(x["same"] for x in launches), name
+    assert in_bwd == [0] * 5
+    assert metrics.COUNTS.get("row_scatter.fused", 0) == 3 * 2 * 4 * 5
+    maxs = max(PL.HIER_MAXS, PL.DEFAULT_MAXC_SHARE // 3)
+    assert scene.clusters.num_clusters <= 2 * maxs * PL.S_CLUSTER
+    assert metrics.COUNTS.get("cand_build.fused", 0) == 0
+    assert metrics.COUNTS.get("cand_build.plain", 0) >= 1

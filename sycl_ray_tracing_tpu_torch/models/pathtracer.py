@@ -5,7 +5,10 @@ Two estimators, both with the JAX package's RNG streams:
   * ``trace`` (estimator="parity"), the reference's structure
     (render_kernel.cpp:96-161): per bounce one closest hit, then light
     NEE (a shadow ray and a GGX-sampled closest hit) and env NEE (two
-    shadow rays), each with two-sided MIS — 5 scene queries a bounce;
+    shadow rays), each with two-sided MIS — 5 scene queries a bounce.  On
+    the list backend every ray that leaves a bounce's hit (its four NEE
+    rays and the next bounce's continuation) goes through ONE
+    ``multi_query`` call; the other backends run each query alone.
     ``nee=False`` is the naive cosine-sampling estimator the tests use to
     validate the MIS weights;
   * ``trace_shared`` (estimator="shared"): one GGX sample per bounce
@@ -81,7 +84,7 @@ from sycl_ray_tracing_tpu_torch.ops.sampling import (
     triangle_area,
 )
 from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
-from sycl_ray_tracing_tpu_torch.utils.metrics import host_read, span
+from sycl_ray_tracing_tpu_torch.utils.metrics import host_read, span, tally
 
 # block-shared list kernel for the (coherent) primary rays
 PRIMARY_SHARE = True
@@ -105,9 +108,9 @@ BACKENDS = ("auto", "brute", "bvh", "cluster", "list")
 class _QueryTape:
     """One sample's traversal answers, recorded on the first run and
     handed back when the checkpointed bounce or sample is replayed in the
-    backward pass, so the replay never traces again.  The fused path keys
-    its ``multi_query`` answers by bounce (-1 for the primaries); the
-    unfused and parity paths key each query by (bounce, query number).
+    backward pass, so the replay never traces again.  The fused paths key
+    their ``multi_query`` answers by bounce (-1 for the primaries); the
+    unfused paths key each query by (bounce, query number).
     The replay gets the same rays, so the same answer; a query with other
     ray counts than the recorded one raises.  It also keeps each
     compacted bounce's width, so the replay adds no host sync."""
@@ -241,6 +244,12 @@ def intersect_scene(scene: Scene, ray_o, ray_d, backend: str = "auto",
         impl))
     if of is not None and ovf is not None:
         of.append(ovf)
+    return _hit_of_prim(scene, ray_o, ray_d, prim)
+
+
+def _hit_of_prim(scene: Scene, ray_o, ray_d, prim) -> Hit:
+    """The differentiable hit record of a traversal's winner ``prim``
+    (``finalize_hit``), merged with the brute-force sphere hits."""
     hit = finalize_hit(ray_o, ray_d, scene.triangles, prim)
     if scene.num_spheres > 0:
         hit = merge_hits(hit, _sphere_hits(scene, ray_o, ray_d))
@@ -263,9 +272,7 @@ def occluded(scene: Scene, ray_o, ray_d, t_max=None, backend: str = "auto",
     """Shadow-ray test with the reference's t_max - 1e-4 slack
     (evaluate_shadow_ray, render_kernel.cpp:744-759; pathtracer.py:
     198-237).  ``t_max=None`` means blocked at any distance (env rays)."""
-    if t_max is None:
-        t_max = torch.full(ray_o.shape[:1], BIG_T, dtype=ray_o.dtype,
-                           device=ray_o.device)
+    t_max = _shadow_t_max(ray_o, t_max)
     backend = _resolve_backend(scene, backend)
     blocked, ovf = _traversal(tape, key, ray_o.shape[0], lambda: _blocked(
         scene, backend, ray_o.detach(), ray_d.detach(), t_max.detach(), mask,
@@ -273,6 +280,14 @@ def occluded(scene: Scene, ray_o, ray_d, t_max=None, backend: str = "auto",
     if of is not None and ovf is not None:
         of.append(ovf)
     return _merge_sphere_occlusion(scene, ray_o, ray_d, t_max, blocked)
+
+
+def _shadow_t_max(ray_o, t_max):
+    """A shadow query's t_max [B]; None means blocked at any distance."""
+    if t_max is None:
+        return torch.full(ray_o.shape[:1], BIG_T, dtype=ray_o.dtype,
+                          device=ray_o.device)
+    return t_max
 
 
 def _material_of_prim(scene: Scene, prim):
@@ -295,21 +310,23 @@ def _any_overflow(of: list, device):
 
 
 def _sample_lights_nee(scene: Scene, hit: Hit, view, diffuse, metal, rough,
-                       key, bounce: int, closest, occl, live,
-                       ggx_bug: bool = False):
+                       key, bounce: int, live, ggx_bug: bool = False):
     """Direct lighting from emissive triangles, both MIS terms (reference
     sample_light_sources, render_kernel.cpp:633-713; pathtracer.py:
-    252-349).  ``closest(q, o, d, mask)`` / ``occl(q, o, d, t_max, mask)``
-    run the bounce's query number q; ``live`` masks the consumed lanes."""
+    252-349), in two halves around the scene queries.  Returns (queries,
+    shade): ``queries`` {q: (o, d, t_max, mask, any_hit)} are the shadow
+    ray toward the sampled light point (q 1) and the GGX-sampled closest
+    hit (q 2); ``shade(answers)`` takes {1: blocked [B] bool, 2: Hit} and
+    returns the radiance [B,3].  ``live`` masks the consumed lanes."""
     B = hit.t.shape[0]
     dev = hit.t.device
     num_lights = scene.num_lights
     radiance = torch.zeros((B, 3), dtype=torch.float32, device=dev)
     if num_lights == 0:
-        return radiance
+        return {}, lambda answers: radiance
     u = uniforms(key, bounce, _LIGHT, (B, 3), dev)
 
-    # --- light-sample term ---
+    # --- light-sample term's ray ---
     pick = torch.clamp_max((u[:, 0] * num_lights).to(torch.int64),
                            num_lights - 1)
     light_tri_idx = scene.emissive_indices[pick]
@@ -324,93 +341,166 @@ def _sample_lights_nee(scene: Scene, hit: Hit, view, diffuse, metal, rough,
     cos_light = torch.clamp_min(dot(ln, -wi), 0.0)
     front = cos_light > 0.0
     cos_surf = dot(hit.normal, wi)
-    shadowed = occl(1, origin, wi, dist,
-                    live & hit.hit & front & (cos_surf > 0.0))
-    # sanitize masked lanes before the arithmetic (a cos_light ~ 0 lane
-    # would make light_pdf explode and NaN-poison the backward pass)
-    light_pdf = pdf_area * dist * dist / torch.clamp_min(cos_light, 1e-6)
-    light_pdf = torch.where(front, light_pdf, 1.0)
-    light_emission = gather_rows(scene.materials.emission,
-                                 _material_of_prim(scene, light_tri_idx))
-    brdf = cook_torrance_eval(diffuse, metal, rough, wi, view, hit.normal)
-    brdf_pdf = cook_torrance_pdf(rough, view, wi, hit.normal)
-    mis_w = power_heuristic(light_pdf, brdf_pdf)
-    contrib = (light_emission * (cos_surf * mis_w / torch.clamp_min(
-        light_pdf, 1e-12))[:, None] * brdf)
-    ok = hit.hit & front & (~shadowed) & (brdf_pdf != 0.0) & (cos_surf > 0.0)
-    radiance = radiance + torch.where(ok[:, None], contrib, 0.0)
 
-    # --- brdf-sample term: did a GGX-sampled ray hit an emitter? ---
+    # --- brdf-sample term's ray: does a GGX-sampled ray hit an emitter? ---
     ub = uniforms(key, bounce, _NEE_BRDF, (B, 2), dev)
     brdf_s, wi_s, pdf_s = ggx_importance_sample(
         diffuse, metal, rough, view, hit.normal, ub[:, 0], ub[:, 1],
         reference_bug=ggx_bug)
     brdf_pos = torch.any(brdf_s > 0.0, dim=-1)
     origin_s = hit.point + hit.normal * 1e-5   # the reference's 1e-5 (:684)
-    h2 = closest(2, origin_s, wi_s, live & hit.hit & (pdf_s > 0.0) & brdf_pos)
-    n_tris = scene.num_triangles
-    cos_at_light = torch.clamp_min(dot(h2.normal, -wi_s), 0.0)
-    hit_emission = gather_rows(scene.materials.emission,
-                               _material_of_prim(scene, h2.prim))
-    is_emitter = torch.any(hit_emission > 0.0, dim=-1) & (h2.prim < n_tris)
-    light_area2 = triangle_area(
-        scene.triangles[torch.clamp(h2.prim, 0, n_tris - 1).long()])
-    # h2.t is BIG_T on a miss: squared it overflows to inf
-    t2_safe = torch.where(h2.hit, h2.t, 1.0)
-    light_pdf2 = (t2_safe * t2_safe) / torch.clamp_min(
-        light_area2 * cos_at_light, 1e-6)
-    light_pdf2 = torch.where(h2.hit & (cos_at_light > 0.0), light_pdf2, 1.0)
-    mis_w2 = power_heuristic(pdf_s, light_pdf2)
-    cos_surf2 = dot(hit.normal, wi_s)
-    contrib2 = brdf_s * hit_emission * (cos_surf2 * mis_w2 / torch.clamp_min(
-        pdf_s, 1e-12))[:, None]
-    ok2 = (hit.hit & h2.hit & is_emitter & (cos_at_light > 0.0)
-           & (pdf_s > 0.0) & brdf_pos)
-    return radiance + torch.where(ok2[:, None], contrib2, 0.0)
+    queries = {
+        1: (origin, wi, dist, live & hit.hit & front & (cos_surf > 0.0),
+            True),
+        2: (origin_s, wi_s, None, live & hit.hit & (pdf_s > 0.0) & brdf_pos,
+            False),
+    }
+
+    def shade(answers):
+        shadowed, h2 = answers[1], answers[2]
+        # sanitize masked lanes before the arithmetic (a cos_light ~ 0
+        # lane would make light_pdf explode and NaN-poison the backward)
+        light_pdf = pdf_area * dist * dist / torch.clamp_min(cos_light, 1e-6)
+        light_pdf = torch.where(front, light_pdf, 1.0)
+        light_emission = gather_rows(scene.materials.emission,
+                                     _material_of_prim(scene, light_tri_idx))
+        brdf = cook_torrance_eval(diffuse, metal, rough, wi, view, hit.normal)
+        brdf_pdf = cook_torrance_pdf(rough, view, wi, hit.normal)
+        mis_w = power_heuristic(light_pdf, brdf_pdf)
+        contrib = (light_emission * (cos_surf * mis_w / torch.clamp_min(
+            light_pdf, 1e-12))[:, None] * brdf)
+        ok = (hit.hit & front & (~shadowed) & (brdf_pdf != 0.0)
+              & (cos_surf > 0.0))
+        lit = radiance + torch.where(ok[:, None], contrib, 0.0)
+
+        n_tris = scene.num_triangles
+        cos_at_light = torch.clamp_min(dot(h2.normal, -wi_s), 0.0)
+        hit_emission = gather_rows(scene.materials.emission,
+                                   _material_of_prim(scene, h2.prim))
+        is_emitter = torch.any(hit_emission > 0.0, dim=-1) & (h2.prim < n_tris)
+        light_area2 = triangle_area(
+            scene.triangles[torch.clamp(h2.prim, 0, n_tris - 1).long()])
+        # h2.t is BIG_T on a miss: squared it overflows to inf
+        t2_safe = torch.where(h2.hit, h2.t, 1.0)
+        light_pdf2 = (t2_safe * t2_safe) / torch.clamp_min(
+            light_area2 * cos_at_light, 1e-6)
+        light_pdf2 = torch.where(h2.hit & (cos_at_light > 0.0), light_pdf2,
+                                 1.0)
+        mis_w2 = power_heuristic(pdf_s, light_pdf2)
+        cos_surf2 = dot(hit.normal, wi_s)
+        contrib2 = brdf_s * hit_emission * (
+            cos_surf2 * mis_w2 / torch.clamp_min(pdf_s, 1e-12))[:, None]
+        ok2 = (hit.hit & h2.hit & is_emitter & (cos_at_light > 0.0)
+               & (pdf_s > 0.0) & brdf_pos)
+        return lit + torch.where(ok2[:, None], contrib2, 0.0)
+
+    return queries, shade
 
 
 def _sample_env_nee(scene: Scene, hit: Hit, view, diffuse, metal, rough,
-                    key, bounce: int, occl, live, ggx_bug: bool = False):
+                    key, bounce: int, live, ggx_bug: bool = False):
     """Direct lighting from the environment map, both MIS terms (reference
     sample_environment_map, render_kernel.cpp:569-631; pathtracer.py:
-    352-400)."""
+    352-400), in two halves like ``_sample_lights_nee``: ``queries`` are
+    the shadow rays toward the sampled sky direction (q 3) and along a GGX
+    sample (q 4), both blocked at any distance; ``shade`` takes {3, 4:
+    blocked [B] bool}."""
     B = hit.t.shape[0]
     dev = hit.t.device
     radiance = torch.zeros((B, 3), dtype=torch.float32, device=dev)
     if scene.env_map is None:
-        return radiance
+        return {}, lambda answers: radiance
     sampler = scene.env_map
 
-    # --- env-sample term ---
+    # --- env-sample term's ray ---
     u = uniforms(key, bounce, _ENV, (B, 2), dev)
     wi, env_rad, env_pdf, _ = env_ops.sample(sampler, u[:, 0], u[:, 1])
     cos_term = dot(hit.normal, wi)
     origin = hit.point + hit.normal * RAY_OFFSET
-    blocked = occl(3, origin, wi, None, live & hit.hit & (cos_term > 0.0))
-    brdf = cook_torrance_eval(diffuse, metal, rough, wi, view, hit.normal)
-    brdf_pdf = cook_torrance_pdf(rough, view, wi, hit.normal)
-    mis_w = power_heuristic(env_pdf, brdf_pdf)
-    contrib = brdf * env_rad * (cos_term * mis_w / torch.clamp_min(
-        env_pdf, 1e-12))[:, None]
-    ok = hit.hit & (cos_term > 0.0) & (~blocked) & (env_pdf > 0.0)
-    radiance = radiance + torch.where(ok[:, None], contrib, 0.0)
 
-    # --- brdf-sample term ---
+    # --- brdf-sample term's ray ---
     ub = uniforms(key, bounce, _ENV_BRDF, (B, 2), dev)
     brdf_s, wi_s, pdf_s = ggx_importance_sample(
         diffuse, metal, rough, view, hit.normal, ub[:, 0], ub[:, 1],
         reference_bug=ggx_bug)
     cos_s = torch.clamp_min(dot(hit.normal, wi_s), 0.0)
     origin_s = hit.point + hit.normal * 1e-5   # the reference's offset (:615)
-    blocked_s = occl(4, origin_s, wi_s, None,
-                     live & hit.hit & (pdf_s > 0.0) & (cos_s > 0.0))
-    env_rad_s = env_ops.eval_direction(sampler.image, wi_s)
-    env_pdf_s = env_ops.pdf_of_direction(sampler, wi_s)
-    mis_w_s = power_heuristic(pdf_s, env_pdf_s)
-    contrib_s = brdf_s * env_rad_s * (cos_s * mis_w_s / torch.clamp_min(
-        pdf_s, 1e-12))[:, None]
-    ok_s = hit.hit & (pdf_s > 0.0) & (cos_s > 0.0) & (~blocked_s)
-    return radiance + torch.where(ok_s[:, None], contrib_s, 0.0)
+    queries = {
+        3: (origin, wi, None, live & hit.hit & (cos_term > 0.0), True),
+        4: (origin_s, wi_s, None,
+            live & hit.hit & (pdf_s > 0.0) & (cos_s > 0.0), True),
+    }
+
+    def shade(answers):
+        blocked, blocked_s = answers[3], answers[4]
+        brdf = cook_torrance_eval(diffuse, metal, rough, wi, view, hit.normal)
+        brdf_pdf = cook_torrance_pdf(rough, view, wi, hit.normal)
+        mis_w = power_heuristic(env_pdf, brdf_pdf)
+        contrib = brdf * env_rad * (cos_term * mis_w / torch.clamp_min(
+            env_pdf, 1e-12))[:, None]
+        ok = hit.hit & (cos_term > 0.0) & (~blocked) & (env_pdf > 0.0)
+        lit = radiance + torch.where(ok[:, None], contrib, 0.0)
+
+        env_rad_s = env_ops.eval_direction(sampler.image, wi_s)
+        env_pdf_s = env_ops.pdf_of_direction(sampler, wi_s)
+        mis_w_s = power_heuristic(pdf_s, env_pdf_s)
+        contrib_s = brdf_s * env_rad_s * (cos_s * mis_w_s / torch.clamp_min(
+            pdf_s, 1e-12))[:, None]
+        ok_s = hit.hit & (pdf_s > 0.0) & (cos_s > 0.0) & (~blocked_s)
+        return lit + torch.where(ok_s[:, None], contrib_s, 0.0)
+
+    return queries, shade
+
+
+def _finish_answers(scene: Scene, queries, answers) -> dict:
+    """Each query's traversal answer made the shading's: a closest hit's
+    winner into its differentiable Hit, a shadow ray's blocked bit with
+    the spheres' occlusion OR'ed in."""
+    out = {}
+    for q, (o, d, t_max, _mask, any_hit) in queries.items():
+        if any_hit:
+            out[q] = _merge_sphere_occlusion(scene, o, d,
+                                             _shadow_t_max(o, t_max),
+                                             answers[q])
+        else:
+            out[q] = _hit_of_prim(scene, o, d, answers[q])
+    return out
+
+
+def _trace_queries(scene: Scene, backend: str, tape: _QueryTape, key,
+                   queries, of: list, impl) -> dict:
+    """The traversal answers of ``queries`` {q: (o, d, t_max, mask,
+    any_hit)} ({q: prim [B] of a closest hit, or blocked [B] bool of a
+    shadow ray; triangles only}); overflow flags are appended to ``of``.
+    On the list backend ONE ``multi_query`` call, recorded on ``tape``
+    under ``key`` (COUNTS["parity.fused_queries"] counts those of a
+    bounce, key >= 0); elsewhere each query alone, under (key, q)."""
+    if not queries:
+        return {}
+    if backend == "list":
+        if key >= 0:
+            tally("parity.fused_queries")
+        qs = list(queries.items())
+        res, ovf = tape.query(key, scene.clusters, [
+            (o, d, t_max if t_max is None else t_max - SHADOW_EPS, m, ah)
+            for _q, (o, d, t_max, m, ah) in qs], impl=impl)
+        of.append(ovf)
+        return {q: (r[1] >= 0 if ah else
+                    listtrace.packed_to_prim(scene.clusters, *r)[1])
+                for (q, (*_, ah)), r in zip(qs, res)}
+    out = {}
+    for q, (o, d, t_max, m, ah) in queries.items():
+        if ah:
+            run = (lambda o=o, d=d, t=_shadow_t_max(o, t_max), m=m:
+                   _blocked(scene, backend, o.detach(), d.detach(),
+                            t.detach(), m, impl))
+        else:
+            run = (lambda o=o, d=d, m=m: _closest_prim(
+                scene, backend, o.detach(), d.detach(), m, None, impl))
+        out[q], ovf = _traversal(tape, (key, q), o.shape[0], run)
+        if ovf is not None:
+            of.append(ovf)
+    return out
 
 
 def trace(scene: Scene, ray_o, ray_d, key, bounces: int,
@@ -423,12 +513,19 @@ def trace(scene: Scene, ray_o, ray_d, key, bounces: int,
 
     ``nee=False`` is the naive estimator: emission gathered at every
     bounce, env at every miss, cosine-hemisphere continuation, no NEE.
-    ``remat`` checkpoints each bounce; its replay takes the bounce's five
-    traversal answers from ``tape`` (keyed (bounce, query)).
-    ``impl="plain"`` runs the list tracer's plain torch kernel versions
-    (comparisons only).  Spans: ``trace.bounce`` (bounce, width) around
-    each bounce, ``nee.light`` / ``nee.env`` (bounce) around its light
-    and sky NEE."""
+    The rays that leave bounce b's hit (light NEE: q 1, 2; sky NEE: q 3,
+    4; the continuation, bounce b+1's closest hit: q 0, none after the
+    last bounce) read no answer of one another, so they are traced
+    together (``_trace_queries``): on the list backend in ONE
+    ``multi_query`` call, recorded on ``tape`` under b, the primaries
+    under -1; elsewhere each alone under (b, q).  Bounce b+1
+    re-intersects its winner in its own body.
+    ``remat`` checkpoints each bounce; its replay takes the traversal
+    answers from ``tape``.  ``impl="plain"`` runs the list tracer's plain
+    torch kernel versions (comparisons only).  Spans: ``trace.primary``
+    (width), ``trace.bounce`` (bounce, width) around each bounce,
+    ``nee.light`` / ``nee.env`` (bounce, phase "rays" or "shade") around
+    each half of its light and sky NEE."""
     B = ray_o.shape[0]
     dev = ray_o.device
     backend = _resolve_backend(scene, backend)
@@ -436,48 +533,33 @@ def trace(scene: Scene, ray_o, ray_d, key, bounces: int,
     ckpt = remat and torch.is_grad_enabled()
     has_env = scene.env_map is not None
 
-    def bounce_body(bounce, ray_o, ray_d, throughput, radiance, alive):
+    def bounce_body(bounce, ray_o, ray_d, prim, throughput, radiance, alive):
         with span("trace.bounce", bounce=bounce, width=B):
-            return _bounce_body(bounce, ray_o, ray_d, throughput, radiance,
-                                alive)
+            return _bounce_body(bounce, ray_o, ray_d, prim, throughput,
+                                radiance, alive)
 
-    def _bounce_body(bounce, ray_o, ray_d, throughput, radiance, alive):
+    def _bounce_body(bounce, ray_o, ray_d, prim, throughput, radiance, alive):
         of = []
-
-        def closest(q, o, d, mask):
-            return intersect_scene(scene, o, d, backend, of, mask=mask,
-                                   impl=impl, tape=tape, key=(bounce, q))
-
-        def occl(q, o, d, t_max, mask):
-            return occluded(scene, o, d, t_max, backend, of, mask=mask,
-                            impl=impl, tape=tape, key=(bounce, q))
-
-        hit = closest(0, ray_o, ray_d, alive)
+        hit = _hit_of_prim(scene, ray_o, ray_d, prim)
         live_hit = alive & hit.hit
         emission, diffuse, metal, rough = scene.materials.lookup(
             _material_of_prim(scene, hit.prim))
         view = -ray_d
+        queries = {}
         if nee:
             # emission only on primary hits (reference :126-127)
             if bounce == 0:
                 radiance = radiance + torch.where(live_hit[:, None],
                                                   emission, 0.0)
-            with span("nee.light", bounce=bounce):
-                light = _sample_lights_nee(
+            with span("nee.light", bounce=bounce, phase="rays"):
+                light_q, light_shade = _sample_lights_nee(
                     scene, hit, view, diffuse, metal, rough, key, bounce,
-                    closest, occl, live_hit, ggx_bug)
-            with span("nee.env", bounce=bounce):
-                env = _sample_env_nee(
+                    live_hit, ggx_bug)
+            with span("nee.env", bounce=bounce, phase="rays"):
+                env_q, env_shade = _sample_env_nee(
                     scene, hit, view, diffuse, metal, rough, key, bounce,
-                    occl, live_hit, ggx_bug)
-            direct = light + env
-            radiance = radiance + torch.where(live_hit[:, None],
-                                              direct * throughput, 0.0)
-            # env on miss, primary rays only (reference :146-158)
-            if has_env and bounce == 0:
-                sky = env_ops.eval_direction(scene.env_map.image, ray_d)
-                radiance = radiance + torch.where(
-                    (alive & ~hit.hit)[:, None], sky * throughput, 0.0)
+                    live_hit, ggx_bug)
+            queries = {**light_q, **env_q}
         else:
             # naive estimator: emission wherever the path lands, one-sided
             # past the primaries; env at every miss
@@ -507,21 +589,44 @@ def trace(scene: Scene, ray_o, ray_d, key, bounces: int,
         cos_c = torch.clamp_min(dot(wi_c, hit.normal), 0.0)
         new_tp = throughput * brdf_c * (cos_c / torch.clamp_min(
             pdf_c, 1e-12))[:, None]
-        throughput = torch.where(ok_c[:, None], new_tp, throughput)
         new_o = hit.point + hit.normal * RAY_OFFSET
-        ray_o = torch.where(ok_c[:, None], new_o, ray_o)
-        ray_d = torch.where(ok_c[:, None], wi_c, ray_d)
-        return (ray_o, ray_d, throughput, radiance, ok_c,
+        next_o = torch.where(ok_c[:, None], new_o, ray_o)
+        next_d = torch.where(ok_c[:, None], wi_c, ray_d)
+        if bounce + 1 < bounces:
+            queries[0] = (next_o, next_d, None, ok_c, False)
+        answers = _trace_queries(scene, backend, tape, bounce, queries, of,
+                                 impl)
+
+        if nee:
+            with span("nee.light", bounce=bounce, phase="shade"):
+                light = light_shade(_finish_answers(scene, light_q, answers))
+            with span("nee.env", bounce=bounce, phase="shade"):
+                env = env_shade(_finish_answers(scene, env_q, answers))
+            direct = light + env
+            radiance = radiance + torch.where(live_hit[:, None],
+                                              direct * throughput, 0.0)
+            # env on miss, primary rays only (reference :146-158)
+            if has_env and bounce == 0:
+                sky = env_ops.eval_direction(scene.env_map.image, ray_d)
+                radiance = radiance + torch.where(
+                    (alive & ~hit.hit)[:, None], sky * throughput, 0.0)
+        throughput = torch.where(ok_c[:, None], new_tp, throughput)
+        return (next_o, next_d, answers.get(0), throughput, radiance, ok_c,
                 _any_overflow(of, dev))
 
     throughput = torch.ones((B, 3), dtype=torch.float32, device=dev)
     radiance = torch.zeros((B, 3), dtype=torch.float32, device=dev)
     alive = torch.ones((B,), dtype=torch.bool, device=dev)
-    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    with span("trace.primary", width=B):
+        of = []
+        prim = _trace_queries(scene, backend, tape, -1,
+                              {0: (ray_o, ray_d, None, None, False)}, of,
+                              impl)[0]
+        overflow = _any_overflow(of, dev)
     for bounce in range(bounces):
-        ray_o, ray_d, throughput, radiance, alive, ovf = _maybe_checkpoint(
-            ckpt, bounce_body, bounce, ray_o, ray_d, throughput, radiance,
-            alive)
+        ray_o, ray_d, prim, throughput, radiance, alive, ovf = \
+            _maybe_checkpoint(ckpt, bounce_body, bounce, ray_o, ray_d, prim,
+                              throughput, radiance, alive)
         overflow = overflow | ovf
     if with_aux:
         return radiance, {"overflow": overflow}

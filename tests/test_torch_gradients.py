@@ -113,7 +113,7 @@ def _port_camera(dz=0.0):
         T.rotation_x(-45.0), T.translation(0.0, -1.0, 10.5 + dz)), "cpu")
 
 
-def _port_frame(ps, frame, remat=True):
+def _port_frame(ps, frame, remat=True, estimator="shared"):
     """The port's counterpart of _jax_grads' loss: (frame, parameters)."""
     p = dict(diffuse=ps.materials.diffuse.clone(),
              image=ps.env_map.image.clone(), tris=ps.triangles.clone(),
@@ -129,7 +129,7 @@ def _port_frame(ps, frame, remat=True):
     scene = dataclasses.replace(
         ps.with_materials(m).with_env_map(p["image"] * (1.0 + p["sky"])),
         triangles=p["tris"])
-    cfg = RenderConfig(intersect="list", estimator="shared", tile_rays=None,
+    cfg = RenderConfig(intersect="list", estimator=estimator, tile_rays=None,
                        remat=remat, **frame)
     return PP.render(scene, _port_camera(p["dz"]), cfg,
                      rng.prng_key(SEED)), p
@@ -236,14 +236,17 @@ def test_scalar_gradients_match_jax(two, name):
     np.testing.assert_allclose(pg[name], jg[name], rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("min_b", [PLAIN, COMPACTED],
-                         ids=["plain", "compacted"])
+@pytest.mark.parametrize("min_b,estimator", [(PLAIN, "shared"),
+                                             (COMPACTED, "shared"),
+                                             (PLAIN, "parity")],
+                         ids=["plain", "compacted", "parity"])
 def test_remat_matches_no_remat_and_never_traces_again(scenes, monkeypatch,
-                                                       min_b):
+                                                       min_b, estimator):
     """remat=True against remat=False: equal values, gradients within
     rtol 1e-5; with remat the backward pass replays every checkpointed
     bounce and sample from the recorded list-tracer answers and calls
-    multi_query zero times."""
+    multi_query zero times.  The parity estimator's replay takes every
+    bounce's fused call, and the primaries', from the tape."""
     calls, replays = [], []
     query, orig = PP._QueryTape.query, PP.multi_query
 
@@ -260,18 +263,21 @@ def test_remat_matches_no_remat_and_never_traces_again(scenes, monkeypatch,
     out = {}
     for remat in (False, True):
         with _compact_min_b(PP, min_b):
-            img, p = _port_frame(scenes[1], TWO, remat=remat)
+            img, p = _port_frame(scenes[1], TWO, remat=remat,
+                                 estimator=estimator)
             assert calls and replays
             calls.clear()
             replays.clear()
             img.mean().backward()
         out[remat] = (img.detach(), {k: x.grad for k, x in p.items()},
-                      len(calls), len(replays))
+                      len(calls), sorted(set(replays)))
     assert torch.equal(out[True][0], out[False][0])
     for k, g in out[False][1].items():
         torch.testing.assert_close(out[True][1][k], g, rtol=1e-5, atol=0)
-    assert out[False][2:] == (0, 0)
-    assert out[True][2] == 0 and out[True][3] > 0
+    assert out[False][2:] == (0, [])
+    assert out[True][2] == 0 and out[True][3]
+    if estimator == "parity":
+        assert out[True][3] == list(range(-1, TWO["bounces"]))
 
 
 def test_default_config_renders(scenes):

@@ -1,7 +1,7 @@
 """The port's parity estimator (``trace``, the reference's 5 queries a
-bounce) and every intersection backend, frame by frame against the JAX
-package's render at the same key, and the parity estimator's gradient
-against ``jax.grad``.
+bounce, fused into one list-tracer call on the list backend) and every
+intersection backend, frame by frame against the JAX package's render at
+the same key, and the parity estimator's gradient against ``jax.grad``.
 
 The scene is the 2k dragon with a 16x32 sky and its emissive panel, plus
 two analytic spheres (tests/test_integrator.py:243-290), carried across
@@ -253,10 +253,14 @@ def test_parity_gradient_matches_jax(scenes, jax_parity_b1, monkeypatch,
                                      backend, remat):
     """d mean / d materials.diffuse of the parity frame at bounces=1, per
     element against jax.grad; with remat the backward replays the bounce
-    from the recorded traversal answers and traces nothing."""
+    from the recorded traversal answers and traces nothing.  Brute force
+    traces each query alone (the primaries' closest hit, then 1 closest
+    hit and 3 shadow rays, the last bounce's NEE); the list tracer traces
+    the primaries and the bounce's four NEE rays in one multi_query call
+    each."""
     ps = scenes[1]
     traced = []
-    for name in ("_closest_prim", "_blocked"):
+    for name in ("_closest_prim", "_blocked", "multi_query"):
         orig = getattr(PP, name)
 
         def spy(*a, _orig=orig, **kw):
@@ -272,7 +276,7 @@ def test_parity_gradient_matches_jax(scenes, jax_parity_b1, monkeypatch,
                        remat=remat)
     img = PP.render(scene, pbrt_dragon_camera("cpu"), cfg,
                     rng.prng_key(SEED))
-    assert len(traced) == 5          # 2 closest hits, 3 shadow queries
+    assert len(traced) == {"brute": 5, "list": 2}[backend]
     traced.clear()
     img.mean().backward()
     assert traced == []
@@ -286,8 +290,8 @@ def test_parity_gradient_matches_jax(scenes, jax_parity_b1, monkeypatch,
 @pytest.mark.card
 def test_parity_tile_equals_plain_on_the_card(card):
     """One 32768-ray tile of the 200k dragon's 512x512 frame at 8
-    bounces through the parity estimator's 5 queries a bounce on the list
-    tracer: both list kernels launch, and the radiance is the plain
+    bounces through the parity estimator's fused list-tracer call a
+    bounce: both list kernels launch, and the radiance is the plain
     twins' bit for bit, certified and finite."""
     ((rad, aux), (rad_p, _aux_p)), launches = tile_both(
         *main_tile(card), backend="list", estimator="parity")

@@ -23,6 +23,11 @@ Two estimators, both with the JAX package's RNG streams:
     than 2048 materials, takes the unfused per-primitive shading with
     separate ``intersect_scene`` / ``occluded`` queries.
 
+A tiled ``render`` traces consecutive tiles as one wavefront, up to
+BATCH_RAYS rays a pass: each ray draws under its own tile's key at its
+place in that tile's draw (``_TileKeys``), so the image is the tiles'
+rendered one by one, at a batch's host cost instead of a tile's each.
+
 Scene queries dispatch on ``backend`` (``_resolve_backend``): the list
 tracer (its CUDA kernels on the card), the cluster pair tracer, the
 threaded BVH or brute force, plus brute-force analytic spheres merged
@@ -75,7 +80,11 @@ from sycl_ray_tracing_tpu_torch.ops.intersect import (
 from sycl_ray_tracing_tpu_torch.ops.kernels import listtrace
 from sycl_ray_tracing_tpu_torch.ops.kernels.listtrace import multi_query
 from sycl_ray_tracing_tpu_torch.ops.kernels.rows import gather_rows
-from sycl_ray_tracing_tpu_torch.ops.rng import fold_in, uniforms
+from sycl_ray_tracing_tpu_torch.ops.rng import (
+    fold_in,
+    threefry2x32,
+    uniform_rows,
+)
 from sycl_ray_tracing_tpu_torch.ops.safe_math import RAY_OFFSET, dot
 from sycl_ray_tracing_tpu_torch.ops.sampling import (
     cosine_hemisphere,
@@ -92,6 +101,10 @@ PRIMARY_SHARE = True
 # Minimum batch for the compacted bounce loop; tests lower it (on both
 # packages) to force the compacted path on small batches.
 COMPACT_MIN_B = 8192
+
+# Most rays a pass of a tiled render traces at once: consecutive tiles up
+# to this many go through one wavefront (the trainer's untiled 512x512)
+BATCH_RAYS = 262_144
 
 # purpose tags for key folding — one stream per random decision
 _JITTER = 0
@@ -141,6 +154,58 @@ class _QueryTape:
         if bounce not in self._widths:
             self._widths[bounce] = choose()
         return self._widths[bounce]
+
+
+class _TileKeys:
+    """The keys of a wavefront of T equal tiles (T = 1 for an untiled
+    call): each tile's key words (host ints) and, for each row of the
+    wavefront, its tile and its place in that tile's own draw.  A
+    [n, k] draw gives the row at place p the counters p*k .. p*k+k-1
+    under its tile's key: the flat indices a call of that tile alone
+    draws it at, since partitionable threefry draws each element from
+    its flat index alone.  ``width`` is a tile's rows in the call
+    (pixels x samples a pass)."""
+
+    def __init__(self, words, width: int, tile, place):
+        self.words, self.width = words, width
+        self.tile, self.place = tile, place
+
+    @classmethod
+    def of(cls, keys, width: int, device):
+        """Keys [2] of tiles laid out one after another, ``width`` rows
+        each: a row's place is its index within its tile."""
+        rows = torch.arange(len(keys) * width, device=device)
+        return cls([tuple(int(v) for v in k.tolist()) for k in keys], width,
+                   rows // width, rows % width)
+
+    def fold(self, data: int) -> "_TileKeys":
+        """``fold_in`` of every tile's key, on the host."""
+        return _TileKeys([threefry2x32(k1, k2, 0, int(data) & 0xFFFFFFFF)
+                          for k1, k2 in self.words], self.width, self.tile,
+                         self.place)
+
+    def ranked(self, tile, live) -> "_TileKeys":
+        """The same keys for the rows of a compacted wavefront: ``tile``
+        each row's tile; ``live`` [T] each tile's live rays, which lie
+        first, tile by tile in their original order.  A live ray's place
+        is its rank among its tile's live rays (a dead row's is unused)."""
+        start = torch.cumsum(live, 0) - live
+        place = torch.arange(tile.shape[0], device=tile.device) \
+            - start.index_select(0, tile)
+        return _TileKeys(self.words, self.width, tile, place)
+
+    def uniforms(self, bounce: int, tag: int, cols: int):
+        """[rows, cols] uniforms of ``pathtracer._uniforms``: each row's
+        draw under fold_in(fold_in(its tile's key, bounce), tag)."""
+        with span("rng.draw"):
+            dev = self.tile.device
+            words = self.fold(bounce).fold(tag).words
+            table = torch.tensor(words, dtype=torch.int64,
+                                 pin_memory=dev.type == "cuda")
+            k = table.to(dev, non_blocking=True).index_select(0, self.tile)
+            counter = self.place[:, None] * cols + torch.arange(
+                cols, device=dev)
+            return uniform_rows(k[:, 0:1], k[:, 1:2], counter)
 
 
 def _maybe_checkpoint(on: bool, fn, *args):
@@ -324,7 +389,7 @@ def _sample_lights_nee(scene: Scene, hit: Hit, view, diffuse, metal, rough,
     radiance = torch.zeros((B, 3), dtype=torch.float32, device=dev)
     if num_lights == 0:
         return {}, lambda answers: radiance
-    u = uniforms(key, bounce, _LIGHT, (B, 3), dev)
+    u = key.uniforms(bounce, _LIGHT, 3)
 
     # --- light-sample term's ray ---
     pick = torch.clamp_max((u[:, 0] * num_lights).to(torch.int64),
@@ -343,7 +408,7 @@ def _sample_lights_nee(scene: Scene, hit: Hit, view, diffuse, metal, rough,
     cos_surf = dot(hit.normal, wi)
 
     # --- brdf-sample term's ray: does a GGX-sampled ray hit an emitter? ---
-    ub = uniforms(key, bounce, _NEE_BRDF, (B, 2), dev)
+    ub = key.uniforms(bounce, _NEE_BRDF, 2)
     brdf_s, wi_s, pdf_s = ggx_importance_sample(
         diffuse, metal, rough, view, hit.normal, ub[:, 0], ub[:, 1],
         reference_bug=ggx_bug)
@@ -413,13 +478,13 @@ def _sample_env_nee(scene: Scene, hit: Hit, view, diffuse, metal, rough,
     sampler = scene.env_map
 
     # --- env-sample term's ray ---
-    u = uniforms(key, bounce, _ENV, (B, 2), dev)
+    u = key.uniforms(bounce, _ENV, 2)
     wi, env_rad, env_pdf, _ = env_ops.sample(sampler, u[:, 0], u[:, 1])
     cos_term = dot(hit.normal, wi)
     origin = hit.point + hit.normal * RAY_OFFSET
 
     # --- brdf-sample term's ray ---
-    ub = uniforms(key, bounce, _ENV_BRDF, (B, 2), dev)
+    ub = key.uniforms(bounce, _ENV_BRDF, 2)
     brdf_s, wi_s, pdf_s = ggx_importance_sample(
         diffuse, metal, rough, view, hit.normal, ub[:, 0], ub[:, 1],
         reference_bug=ggx_bug)
@@ -509,7 +574,8 @@ def trace(scene: Scene, ray_o, ray_d, key, bounces: int,
           tape: _QueryTape | None = None):
     """Trace one path per ray with the reference's 5-query structure
     (render_kernel.cpp:96-161; pathtracer.py:403-525); returns radiance
-    [B,3] (and {"overflow": bool tensor} with ``with_aux``).
+    [B,3] (and {"overflow": bool tensor} with ``with_aux``).  ``key``:
+    the rays' ``_TileKeys``; a ray draws at its index in its tile.
 
     ``nee=False`` is the naive estimator: emission gathered at every
     bounce, env at every miss, cosine-hemisphere continuation, no NEE.
@@ -575,7 +641,7 @@ def trace(scene: Scene, ray_o, ray_d, key, bounces: int,
 
         # continuation: GGX importance sample (reference :121-141); the
         # naive estimator samples the cosine hemisphere
-        uc = uniforms(key, bounce, _CONT, (B, 2), dev)
+        uc = key.uniforms(bounce, _CONT, 2)
         if nee:
             brdf_c, wi_c, pdf_c = ggx_importance_sample(
                 diffuse, metal, rough, view, hit.normal, uc[:, 0], uc[:, 1],
@@ -642,7 +708,9 @@ def trace_shared(scene: Scene, ray_o, ray_d, key, bounces: int,
     launch on the list backend with at most 2048 materials.
 
     Returns radiance [B,3] (and {"overflow": bool tensor} with
-    ``with_aux``).  ``remat`` checkpoints each bounce (see the module
+    ``with_aux``).  ``key``: the rays' ``_TileKeys``; a ray draws at its
+    index in its tile, or compacted, at its rank among its tile's live
+    rays.  ``remat`` checkpoints each bounce (see the module
     docstring); ``tape`` is the sample's record of traversal answers,
     passed by a caller that checkpoints the whole sample.
     ``impl="plain"`` runs the list tracer's plain torch kernel versions
@@ -738,16 +806,17 @@ def trace_shared(scene: Scene, ray_o, ray_d, key, bounces: int,
             sky0 = env_ops.eval_direction(scene.env_map.image, ray_d)
             radiance = torch.where((~hit0.hit)[:, None], sky0, 0.0)
 
-    def bounce_core(bounce, ray_o, ray_d, hit, mid, throughput, radiance,
-                    alive):
+    def bounce_core(bounce, key, ray_o, ray_d, hit, mid, throughput,
+                    radiance, alive):
         """One bounce over a wavefront of any width (pathtracer.py:
-        683-918).  Returns the updated state and the bounce's overflow."""
+        683-918), drawing under ``key``.  Returns the updated state and
+        the bounce's overflow."""
         with span("trace.bounce", bounce=bounce, width=ray_o.shape[0]):
-            return _bounce_core(bounce, ray_o, ray_d, hit, mid, throughput,
-                                radiance, alive)
+            return _bounce_core(bounce, key, ray_o, ray_d, hit, mid,
+                                throughput, radiance, alive)
 
-    def _bounce_core(bounce, ray_o, ray_d, hit, mid, throughput, radiance,
-                     alive):
+    def _bounce_core(bounce, key, ray_o, ray_d, hit, mid, throughput,
+                     radiance, alive):
         W = ray_o.shape[0]
         live_hit = alive & hit.hit
         if fuse:
@@ -763,7 +832,7 @@ def trace_shared(scene: Scene, ray_o, ray_d, key, bounces: int,
         origin = hit.point + hit.normal * RAY_OFFSET
 
         # ONE GGX sample for all brdf-sampled estimators this bounce
-        uc = uniforms(key, bounce, _CONT, (W, 2), dev)
+        uc = key.uniforms(bounce, _CONT, 2)
         brdf_s, wi_s, pdf_s = ggx_importance_sample(
             diffuse, metal, rough, view, hit.normal, uc[:, 0], uc[:, 1],
             reference_bug=ggx_bug,
@@ -773,7 +842,7 @@ def trace_shared(scene: Scene, ray_o, ray_d, key, bounces: int,
         cont_ok = (live_hit & (pdf_s >= 1e-8) & torch.isfinite(pdf_s)
                    & brdf_pos)
         if num_lights > 0:
-            u = uniforms(key, bounce, _LIGHT, (W, 3), dev)
+            u = key.uniforms(bounce, _LIGHT, 3)
             pick = torch.clamp_max((u[:, 0] * num_lights).to(torch.int64),
                                    num_lights - 1)
             lr = gather_rows(light_rows, pick)           # [W,12]
@@ -790,7 +859,7 @@ def trace_shared(scene: Scene, ray_o, ray_d, key, bounces: int,
             light_mask = live_hit & front & (cos_surf > 0.0)
         if has_env:
             sampler = scene.env_map
-            u_e = uniforms(key, bounce, _ENV, (W, 2), dev)
+            u_e = key.uniforms(bounce, _ENV, 2)
             wi_e, env_rad, env_pdf, _ = env_ops.sample(
                 sampler, u_e[:, 0], u_e[:, 1])
             cos_e = dot(hit.normal, wi_e)
@@ -919,17 +988,21 @@ def trace_shared(scene: Scene, ray_o, ray_d, key, bounces: int,
     overflow = ovf0
     hit, mid = hit0, mid0
 
-    if not (fuse and B >= COMPACT_MIN_B):
+    if not (fuse and key.width >= COMPACT_MIN_B):
         for bounce in range(bounces):
             ray_o, ray_d, hit, mid, throughput, radiance, alive, ovf = \
-                _maybe_checkpoint(ckpt, bounce_core, bounce, ray_o, ray_d,
-                                  hit, mid, throughput, radiance, alive)
+                _maybe_checkpoint(ckpt, bounce_core, bounce, key, ray_o,
+                                  ray_d, hit, mid, throughput, radiance,
+                                  alive)
             overflow = overflow | ovf
     else:
         # compacted wavefront (pathtracer.py:976-1059): each bounce
         # stable-partitions live rays first and runs on the smallest width
         # bucket covering them; a carried original-index column undoes
-        # the accumulated permutations at the end
+        # the accumulated permutations at the end.  Live rays stay in
+        # their original order, so tile j's live rays lie at [start_j,
+        # start_j + live_j) and a ray's place in its tile's draw is its
+        # rank among them, as in a call of that tile alone
         r256 = lambda x: -(-x // 256) * 256                # noqa: E731
         widths = sorted({r256(max(256, B // d)) for d in (8, 4, 2)} | {B})
         state = dict(ray_o=ray_o, ray_d=ray_d, mid=mid, tp=throughput,
@@ -942,12 +1015,17 @@ def trace_shared(scene: Scene, ray_o, ray_d, key, bounces: int,
                                      stable=True)
                 state = {k: v.index_select(0, perm)
                          for k, v in state.items()}
+                tile = state["ordmap"] // key.width
+                live = torch.zeros(len(key.words), dtype=torch.int64,
+                                   device=dev).index_add_(
+                                       0, tile, state["alive"].long())
                 w = tape.width(bounce, lambda: next(
                     x for x in widths
-                    if x >= host_read("alive", state["alive"].sum())))
+                    if x >= host_read("alive", live.sum())))
+                bkey = key.ranked(tile[:w], live)
             h = Hit(**{f: state[f"hit_{f}"][:w] for f in _HIT_FIELDS})
             out = _maybe_checkpoint(
-                ckpt, bounce_core, bounce, state["ray_o"][:w],
+                ckpt, bounce_core, bounce, bkey, state["ray_o"][:w],
                 state["ray_d"][:w], h, state["mid"][:w], state["tp"][:w],
                 state["rad"][:w], state["alive"][:w])
             ro, rd, h2, mid2, tp, rad, alv, ovf = out
@@ -979,18 +1057,31 @@ def render_rays(scene: Scene, camera: Camera, px, py, width: int,
     around pixel centers (render_kernel.cpp:88-89).  ``estimator="shared"``
     with ``nee`` traces with ``trace_shared``, anything else with
     ``trace`` (pathtracer.py:1094-1100).  With ``remat`` and more than one
-    pass, each pass is checkpointed too (pathtracer.py:1108-1121)."""
+    pass, each pass is checkpointed too (pathtracer.py:1108-1121).
+
+    ``key``: one key, or a list of T keys: the B rays are then T equal
+    tiles, one after another, traced as one wavefront, and tile j's rays
+    draw under keys[j] what a call of tile j alone under keys[j] draws
+    them (``_TileKeys``)."""
     if estimator not in ("shared", "parity"):
         raise ValueError(f"bad estimator {estimator!r}")
     B = px.shape[0]
     P = max(1, samples_per_pass)
     if samples % P != 0:
         raise ValueError("samples must divide by samples_per_pass")
-    px_rep, py_rep = (px, py) if P == 1 else (px.repeat(P), py.repeat(P))
+    keys = [key] if torch.is_tensor(key) else list(key)
+    T = len(keys)
+    if B % T:
+        raise ValueError("tiles must hold equal numbers of rays")
+    key = _TileKeys.of(keys, B // T * P, px.device)
+    # each tile's P samples of its rays one after another (px.repeat(P)
+    # within the tile)
+    px_rep, py_rep = (px, py) if P == 1 else tuple(
+        x.reshape(T, -1).repeat(1, P).reshape(-1) for x in (px, py))
 
     def sample_pass(s, px_rep, py_rep, tape):
-        ks = fold_in(key, s)
-        uj = uniforms(ks, 0, _JITTER, (B * P, 2), px.device)
+        ks = key.fold(s)
+        uj = ks.uniforms(0, _JITTER, 2)
         jx = px_rep + 0.5 + uj[:, 0] - 1.0
         jy = py_rep + 0.5 + uj[:, 1] - 1.0
         ro, rd = camera.generate_rays(jx, jy, width, height)
@@ -1006,7 +1097,7 @@ def render_rays(scene: Scene, camera: Camera, px, py, width: int,
             # per-sample firefly clamp (biased, like all production clamps)
             rad = torch.clamp_max(rad, max_radiance)
         if P > 1:
-            rad = rad.reshape(P, B, 3).sum(dim=0)
+            rad = rad.reshape(T, P, B // T, 3).sum(dim=1).reshape(B, 3)
         return rad, aux["overflow"]
 
     ckpt = remat and samples // P > 1 and torch.is_grad_enabled()
@@ -1057,19 +1148,35 @@ def _render_image(scene: Scene, camera: Camera, config: RenderConfig, key,
             zeros = torch.zeros((pad,), dtype=torch.float32, device=dev)
             px = torch.cat([px, zeros])
             py = torch.cat([py, zeros])
+            per = _tiles_per_batch(scene, config)
             parts, overflow = [], torch.zeros((), dtype=torch.bool, device=dev)
-            for tidx in range(n_tiles):
-                sl = slice(tidx * tile, (tidx + 1) * tile)
-                with span("render.tile", tile=tidx):
-                    h, a = render_rays(scene, camera, px[sl], py[sl], W,
-                                       H, fold_in(key, tidx), **kw)
+            for first in range(0, n_tiles, per):
+                tiles = range(first, min(n_tiles, first + per))
+                sl = slice(first * tile, tiles.stop * tile)
+                tally("render.batches")
+                with span("render.batch", tiles=len(tiles),
+                          rays=len(tiles) * tile):
+                    h, a = render_rays(scene, camera, px[sl], py[sl], W, H,
+                                       [fold_in(key, t) for t in tiles],
+                                       **kw)
                 parts.append(h)
                 overflow = overflow | a["overflow"]
                 if on_tile is not None:
-                    on_tile(tidx, n_tiles, h)
+                    for j, t in enumerate(tiles):
+                        on_tile(t, n_tiles, h[j * tile:(j + 1) * tile])
             hdr, aux = torch.cat(parts)[:B], {"overflow": overflow}
         img = hdr.reshape(H, W, 3)
     return img, aux
+
+
+def _tiles_per_batch(scene: Scene, config: RenderConfig) -> int:
+    """Tiles a batch of a tiled render holds: as many as fit BATCH_RAYS
+    rays a pass, and on the cluster pair tracer as many as its static
+    pair budgets hold (``ClusterScene.budget_rays``), at least one."""
+    rays = BATCH_RAYS
+    if _resolve_backend(scene, config.intersect) == "cluster":
+        rays = min(rays, scene.clusters.budget_rays)
+    return max(1, rays // (config.tile_rays * config.samples_per_pass))
 
 
 def render(scene: Scene, camera: Camera, config: RenderConfig, key,
@@ -1078,8 +1185,12 @@ def render(scene: Scene, camera: Camera, config: RenderConfig, key,
     1131-1202).  Row 0 is the BOTTOM of the image.  ``with_aux=True`` also
     returns {"overflow": bool}: True when some ray's answer is not
     certified exact.  Tiles of ``config.tile_rays`` rays use the per-tile
-    key fold_in(key, tile_index); ``on_tile(tile_index, n_tiles, hdr)`` is
-    called after each tile's render (the CLI's progress lines)."""
+    key fold_in(key, tile_index), the last one padded; consecutive tiles
+    render together, up to BATCH_RAYS rays a pass, under span
+    ``render.batch`` (tiles, rays), each batch counted under
+    COUNTS["render.batches"]; the image is the tiles' as rendered one by
+    one.  ``on_tile(tile_index, n_tiles, hdr)`` is called for each tile
+    in order once its batch is rendered (the CLI's progress lines)."""
     with span("render"):
         img, aux = _render_image(scene, camera, config, key, impl, on_tile)
         aux = {"overflow": host_read("overflow", aux["overflow"])}

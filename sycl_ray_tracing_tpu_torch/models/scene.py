@@ -151,9 +151,11 @@ class Scene:
         """Build the clustered acceleration structure (native SAH leaf
         order by default), its pair budgets and the cluster-slot shading
         table (scene.py:124-142).  ``num_rays_hint`` sizes the pair
-        tracer's static budgets and must be the wavefront TILE size
-        (RenderConfig.tile_rays), not the image size: its phase-3 gather
-        holds p2_budget rows of 1152 floats (2.7 GB at 32768)."""
+        tracer's static budgets, and so the most rays a tiled render
+        batches on it (ClusterScene.budget_rays).  Give the wavefront
+        TILE size (RenderConfig.tile_rays), not the image size: its
+        phase-3 gather holds p2_budget rows of 1152 floats (2.7 GB at
+        32768)."""
         arrays = build_cluster_arrays(self.triangles.detach().cpu().numpy(),
                                       order)
         p1, p2 = default_budgets(num_rays_hint, arrays["sc_box"].shape[0])

@@ -69,6 +69,9 @@ _CHUNK_ELEMS = 1 << 25
 HIER_MAX_K1 = 128
 HIER_MAX_SLOTS = 128
 HIER_MAX_GROUP = 32
+# pairs a ray is budgeted for (default_budgets): (ray, supercluster)
+# pairs, at most one a supercluster, and (ray, cluster) pairs
+P1_PER_RAY, P2_PER_RAY = 8, 18
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +100,16 @@ class ClusterScene:
     @property
     def num_superclusters(self) -> int:
         return self.sc_box.shape[0]
+
+    @property
+    def budget_rays(self) -> int:
+        """Rays one pair-tracer call holds at the pair densities its
+        budgets were sized for (default_budgets).  The budgets are
+        static, so a wider call drops pairs past them and raises the
+        overflow flag: a tiled render batches no more rays than this."""
+        p1_per_ray = min(P1_PER_RAY, max(1, self.num_superclusters))
+        return min(self.p1_budget // p1_per_ray,
+                   self.p2_budget // P2_PER_RAY)
 
     def with_list_maxc(self, maxc: int) -> "ClusterScene":
         return dataclasses.replace(self, list_maxc=maxc)
@@ -688,8 +701,8 @@ def default_budgets(num_rays: int, k1: int):
     """Pair budgets sized from the densities measured on the dragon at
     T=128 (cluster.py:207-213): surface-origin rays average ~5
     supercluster pairs and ~13 cluster pairs a ray."""
-    p1 = min(num_rays * 8, num_rays * max(1, k1))
-    p2 = num_rays * 18
+    p1 = num_rays * min(P1_PER_RAY, max(1, k1))
+    p2 = num_rays * P2_PER_RAY
     return p1, p2
 
 

@@ -1,8 +1,11 @@
 """Counter-based RNG, bit-exact with ``jax.random`` (threefry2x32).
 
 Counterpart of ``jax.random.PRNGKey`` / ``fold_in`` / ``uniform`` under
-``jax_threefry_partitionable=True`` (the JAX package's setting), and of
-``pathtracer._uniforms`` (sycl_ray_tracing_tpu/models/pathtracer.py:109-111).
+``jax_threefry_partitionable=True`` (the JAX package's setting).
+``uniform_rows`` draws under per-element keys: the renderer's
+``pathtracer._TileKeys.uniforms`` builds the JAX package's per-bounce,
+per-purpose streams (``pathtracer._uniforms``,
+sycl_ray_tracing_tpu/models/pathtracer.py:109-111) on it.
 
 A key is an int64 tensor of shape (2,) on the CPU holding the two 32-bit
 words, passed down explicitly exactly as JAX passes its key.  All word
@@ -11,7 +14,9 @@ CUDA tensors (and on Python ints, which is how keys are folded).
 
 Partitionable threefry draws element ``i`` of a shape from the counter
 pair (i >> 32, i & 0xFFFFFFFF), so a draw depends only on its flat index:
-the first rows of a (4096, 2) draw equal a (512, 2) draw.
+the first rows of a (4096, 2) draw equal a (512, 2) draw.  So
+``uniform_rows`` can draw a batch of tiles at once, each element under
+its own tile's key at the flat index its tile's own draw gives it.
 """
 
 from __future__ import annotations
@@ -19,8 +24,6 @@ from __future__ import annotations
 import math
 
 import torch
-
-from sycl_ray_tracing_tpu_torch.utils.metrics import span
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -66,16 +69,23 @@ def random_bits(key: torch.Tensor, shape, device) -> torch.Tensor:
     return (b0 ^ b1).reshape(shape)
 
 
-def uniform(key: torch.Tensor, shape, device) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)`` in [0, 1): mantissa fill
-    ``(bits >> 9) | 0x3F800000`` reinterpreted as a float, minus 1."""
-    bits = random_bits(key, tuple(shape), device)
+def _unit(bits: torch.Tensor) -> torch.Tensor:
+    """32 random bits -> float32 in [0, 1): mantissa fill ``(bits >> 9) |
+    0x3F800000`` reinterpreted as a float, minus 1."""
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     return torch.clamp_min(fbits.view(torch.float32) - 1.0, 0.0)
 
 
-def uniforms(key: torch.Tensor, bounce: int, tag: int, shape,
-             device) -> torch.Tensor:
-    """``pathtracer._uniforms``: uniform(fold_in(fold_in(key, bounce), tag))."""
-    with span("rng.draw"):
-        return uniform(fold_in(fold_in(key, bounce), tag), shape, device)
+def uniform(key: torch.Tensor, shape, device) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` in [0, 1)."""
+    return _unit(random_bits(key, tuple(shape), device))
+
+
+def uniform_rows(k1: torch.Tensor, k2: torch.Tensor,
+                 counter: torch.Tensor) -> torch.Tensor:
+    """``uniform`` element by element under per-element keys: element j
+    is the draw of flat index ``counter[j]`` under key (k1[j], k2[j]).
+    int64 tensors that broadcast to one shape (the keys [n, 1] beside
+    counters [n, k] give each row its own key)."""
+    b0, b1 = threefry2x32(k1, k2, counter >> 32, counter & _MASK)
+    return _unit(b0 ^ b1)

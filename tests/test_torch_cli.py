@@ -46,6 +46,7 @@ from sycl_ray_tracing_tpu_torch.models.progressive import (
 )
 from sycl_ray_tracing_tpu_torch.ops import cluster as PC
 from sycl_ray_tracing_tpu_torch.utils import config as PCFG
+from sycl_ray_tracing_tpu_torch.utils import metrics
 from sycl_ray_tracing_tpu_torch.utils.denoise import denoise
 from sycl_ray_tracing_tpu_torch.utils.hdr import read_hdr, write_hdr
 from sycl_ray_tracing_tpu_torch.utils.image_io import read_png
@@ -170,18 +171,42 @@ def test_cli_regrow_matches_jax(assets, tmp_path, monkeypatch, capsys):
         "re-rendering"]
 
 
-def test_cli_tiled_matches_render_and_jax(assets, tmp_path, monkeypatch):
+# the CLI arguments past the frame's, and COMPACT_MIN_B on both sides
+# (None: as is, the plain loop at these widths): the shared estimator
+# on brute force, with two samples a pass, the parity estimator's fused
+# list-tracer bounce, and the shared estimator's compacted wavefront
+TILED = {
+    "shared": (["--samples=2", "--intersect=brute", "--estimator=shared"],
+               None),
+    "spp_pass": (["--samples=2", "--spp-pass=2", "--intersect=brute",
+                  "--estimator=shared"], None),
+    "parity": (["--samples=1", "--intersect=list", "--estimator=parity"],
+               None),
+    "compacted": (["--samples=1", "--intersect=list", "--estimator=shared"],
+                  1),
+}
+
+
+@pytest.mark.parametrize("case", list(TILED))
+def test_cli_tiled_matches_render_and_jax(assets, tmp_path, monkeypatch,
+                                          case):
     """With tile_rays=96 the 16x16 frame takes the CLI's tiled path (3
-    tiles, the last zero-padded): the port's image equals
+    tiles, the last zero-padded, in one batch): the port's image equals
     pathtracer.render's on the same scene, config and key bit for bit (the
-    same tile and key schedule), and the JAX CLI's tiled image per pixel
-    within rtol 1e-4 / atol 1e-6."""
+    same tile and key schedule), and so does that render a tile a batch;
+    the JAX CLI's tiled image per pixel within rtol 1e-4 / atol 1e-6."""
+    from sycl_ray_tracing_tpu.models import pathtracer as JP
     from sycl_ray_tracing_tpu.utils import config as JCFG
     from sycl_ray_tracing_tpu_torch.models import pathtracer
     from sycl_ray_tracing_tpu_torch.ops.rng import prng_key
     from sycl_ray_tracing_tpu_torch.utils.image_io import read_image_float
     from sycl_ray_tracing_tpu_torch.utils.obj_loader import load_scene
 
+    args, min_b = TILED[case]
+    monkeypatch.setattr(JC, "sah_order", PC.sah_order)
+    if min_b is not None:
+        for mod in (JP, pathtracer):
+            monkeypatch.setattr(mod, "COMPACT_MIN_B", min_b)
     for mod in (JCFG, PCFG):
         parse = mod.parse_cli
 
@@ -191,8 +216,7 @@ def test_cli_tiled_matches_render_and_jax(assets, tmp_path, monkeypatch):
 
         monkeypatch.setattr(mod, "parse_cli", tiled)
     argv = [str(assets / "d.obj"), f"--sky={assets / 'sky.hdr'}", "--w=16",
-            "--h=16", "--samples=2", "--bounces=2", "--camera=pbrt_dragon",
-            "--intersect=brute", "--estimator=shared"]
+            "--h=16", "--bounces=2", "--camera=pbrt_dragon", *args]
     assert _run_cli(jax_main.main, tmp_path / "jax", argv) == 0
     assert _run_cli(port_main.main, tmp_path / "port", argv,
                     device="cpu") == 0
@@ -200,12 +224,30 @@ def test_cli_tiled_matches_render_and_jax(assets, tmp_path, monkeypatch):
     scene = load_scene(str(assets / "d.obj"), device="cpu",
                        env_map_image=read_image_float(
                            str(assets / "sky.hdr"), flip_y=True))
-    tiles = []
-    with torch.no_grad():
-        want = pathtracer.render(scene, pbrt_dragon_camera("cpu"), cfg,
-                                 prng_key(0),
-                                 on_tile=lambda i, n, h: tiles.append(n))
-    assert tiles == [3, 3, 3]
+    if cfg.intersect == "list":
+        scene = scene.build_acceleration(num_rays_hint=cfg.tile_rays)
+    renders = {}
+    for batch in (pathtracer.BATCH_RAYS,
+                  cfg.tile_rays * cfg.samples_per_pass):
+        monkeypatch.setattr(pathtracer, "BATCH_RAYS", batch)
+        tiles = []
+        metrics.reset_counts()
+        with torch.no_grad():
+            img = pathtracer.render(
+                scene, pbrt_dragon_camera("cpu"), cfg, prng_key(0),
+                on_tile=lambda i, n, h, tiles=tiles: tiles.append(
+                    (i, n, h.clone())))
+        renders[batch] = (img, tiles, metrics.COUNTS["render.batches"])
+    (want, tiles, made), (one, _tiles, made_one) = renders.values()
+    # one batch of the 3 tiles, then on_tile once a tile, in order, with
+    # the tile's rows of the image; a tile a batch gives the same image
+    assert (made, made_one) == (1, 3)
+    assert [(i, n) for i, n, _h in tiles] == [(0, 3), (1, 3), (2, 3)]
+    flat = want.reshape(-1, 3)
+    for i, _n, h in tiles:
+        rows = flat[i * 96:(i + 1) * 96]
+        assert torch.equal(h[:rows.shape[0]], rows)
+    assert torch.equal(want, one)
     # render's image through the same RGBE writer as the CLI's
     write_hdr(str(tmp_path / "want.hdr"), want.numpy())
     p = read_hdr(str(tmp_path / "port" / "RT_output.hdr"))

@@ -23,7 +23,8 @@ from sycl_ray_tracing_tpu_torch.utils import metrics
 from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
 from sycl_ray_tracing_tpu_torch.utils.procedural import dragon_scene
 
-# 16x16 in 2 tiles of 128 rays, 2 bounces, compacted (COMPACT_MIN_B 1)
+# 16x16 in 2 tiles of 128 rays (one batch), 2 bounces, compacted
+# (COMPACT_MIN_B 1)
 FRAME = dict(width=16, height=16, samples=1, bounces=2, intersect="list",
              estimator="shared", tile_rays=128)
 SITES = ("live_rays", "redo", "alive", "overflow")
@@ -65,17 +66,17 @@ def test_span_off_is_the_shared_noop():
 def test_spans_nest_with_parent_and_call_ids():
     with metrics.tracing() as spans:
         with metrics.span("render"):
-            with metrics.span("render.tile", tile=0):
+            with metrics.span("render.batch", tile=0):
                 with metrics.span("rng.draw"):
                     pass
-            with metrics.span("render.tile", tile=1):
+            with metrics.span("render.batch", tile=1):
                 pass
         with metrics.span("render"):
             pass
     by = _by_name(spans)
     first, second = by["render"]
     draw, = by["rng.draw"]
-    t0, t1 = by["render.tile"]
+    t0, t1 = by["render.batch"]
     assert first[4] is None and second[4] is None
     assert first[5] != second[5]
     assert t0[4] == first[3] and t1[4] == first[3] and draw[4] == t0[3]
@@ -142,9 +143,10 @@ def _frame(scene, key=3):
 def test_host_reads_counted_at_each_site_and_frames_identical(
         scene, monkeypatch):
     """A tiny compacted, tiled frame: every blocking read is counted at
-    its site, each once a query, a pass, a compacted bounce (one width
-    tried at 128 rays) and a frame; with tracing on, the same frame, the
-    same counts, the same launches and one ``sync.<site>`` span a read."""
+    its site, each once a query, a pass, a compacted bounce of its one
+    batch (one width tried at 256 rays) and a frame; with tracing on, the
+    same frame, the same counts, the same launches and one
+    ``sync.<site>`` span a read."""
     monkeypatch.setattr(PP, "COMPACT_MIN_B", 1)
     out = {}
     for on in (False, True):
@@ -161,11 +163,12 @@ def test_host_reads_counted_at_each_site_and_frames_identical(
     assert out[True][1:] == out[False][1:]
     counts = out[True][2]
     by = _by_name(spans)
-    tiles = 2
+    batches = 1
+    assert counts["render.batches"] == batches
     assert counts["host_syncs.overflow"] == 1
-    assert counts["host_syncs.alive"] == tiles * FRAME["bounces"]
+    assert counts["host_syncs.alive"] == batches * FRAME["bounces"]
     assert counts["host_syncs.redo"] == len(by["query"]) \
-        == tiles * (1 + FRAME["bounces"])
+        == batches * (1 + FRAME["bounces"])
     assert counts["host_syncs.live_rays"] == len(by["query.pass"])
     assert counts["host_syncs"] == sum(counts[f"host_syncs.{s}"]
                                        for s in SITES)
@@ -181,12 +184,13 @@ def test_spans_of_a_frame_follow_its_layers(scene, monkeypatch):
     by = _by_name(spans)
     render, = by["render"]
     assert {s[5] for s in spans} == {render[5]}
-    assert [s[7]["tile"] for s in by["render.tile"]] == [0, 1]
+    assert [s[7] for s in by["render.batch"]] == [{"tiles": 2,
+                                                   "rays": 256}]
     expect = {
-        "render.tile": ["render"],
-        "trace.primary": ["render.tile", "render"],
-        "bounce.compact": ["render.tile", "render"],
-        "trace.bounce": ["render.tile", "render"],
+        "render.batch": ["render"],
+        "trace.primary": ["render.batch", "render"],
+        "bounce.compact": ["render.batch", "render"],
+        "trace.bounce": ["render.batch", "render"],
         "query.escalate": ["query"],
         "query.build": ["query.pass", "query"],
         "query.kernel": ["query.pass", "query"],
@@ -202,8 +206,8 @@ def test_spans_of_a_frame_follow_its_layers(scene, monkeypatch):
     for s in by["query.pass"]:
         assert _ancestors(spans, s)[0] in ("query", "query.escalate")
     for s in by["rng.draw"]:
-        assert _ancestors(spans, s)[0] in ("render.tile", "trace.bounce")
-    assert [s[7]["bounce"] for s in by["trace.bounce"]] == [0, 1, 0, 1]
+        assert _ancestors(spans, s)[0] in ("render.batch", "trace.bounce")
+    assert [s[7]["bounce"] for s in by["trace.bounce"]] == [0, 1]
     assert {s[7]["kernel"] for s in by["query.kernel"]} <= {"block_tiles",
                                                             "list_tiles"}
 

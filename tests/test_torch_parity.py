@@ -1,7 +1,9 @@
 """The port's parity estimator (``trace``, the reference's 5 queries a
 bounce, fused into one list-tracer call on the list backend) and every
 intersection backend, frame by frame against the JAX package's render at
-the same key, and the parity estimator's gradient against ``jax.grad``.
+the same key, and the parity estimator's gradient against ``jax.grad``;
+a tiled parity frame, its tiles traced together, against the benchmark's
+parity reference rendering each tile alone.
 
 The scene is the 2k dragon with a 16x32 sky and its emissive panel, plus
 two analytic spheres (tests/test_integrator.py:243-290), carried across
@@ -35,9 +37,14 @@ from sycl_ray_tracing_tpu_torch.models import pathtracer as PP
 from sycl_ray_tracing_tpu_torch.models.camera import pbrt_dragon_camera
 from sycl_ray_tracing_tpu_torch.models.scene import Materials, scene_from_numpy
 from sycl_ray_tracing_tpu_torch.ops import bvh as PB
+from sycl_ray_tracing_tpu_torch.ops import cluster as PC
 from sycl_ray_tracing_tpu_torch.ops import rng
 from sycl_ray_tracing_tpu_torch.utils.config import RenderConfig
 from test_torch_cluster import jax_scene_arrays
+from test_torch_pathtracer import (  # noqa: F401
+    _frame_against_tiles,
+    bench_scene,
+)
 from torch_card import card, main_tile, tile_both  # noqa: F401
 
 W = H = 8
@@ -285,6 +292,42 @@ def test_parity_gradient_matches_jax(scenes, jax_parity_b1, monkeypatch,
     g = diffuse.grad.numpy()
     assert np.isfinite(g).all() and np.abs(g).sum() > 0
     np.testing.assert_allclose(g, jg, rtol=1e-4, atol=1e-9)
+
+
+# (frame size and backend, BATCH_RAYS, cluster budget rays, batches):
+# 16x12 in 2 tiles of 128 rays, the last padded, one batch; 3 tiles of
+# 80 rays (the last padded) in two batches of 2 and 1 tiles; on the
+# cluster pair tracer, batches as wide as its pair budgets' rays: one
+# tile each (as the CLI sizes them), or two
+BATCHED = {
+    "one_batch": (dict(width=16, height=12, tile_rays=128), None, None, 1),
+    "two_batches": (dict(width=16, height=12, tile_rays=80), 160, None, 2),
+    "cluster": (dict(width=16, height=12, tile_rays=80,
+                     intersect="cluster"), None, 80, 3),
+    "cluster_two_tiles": (dict(width=16, height=12, tile_rays=80,
+                               intersect="cluster"), None, 160, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(BATCHED))
+def test_batched_parity_frame_equals_the_reference_tiles(bench_scene,
+                                                         monkeypatch, case):
+    """The parity estimator's tiled frame at 3 bounces, its tiles traced
+    together, per pixel against the benchmark's parity reference
+    rendering each tile alone (test_torch_pathtracer's comparison)."""
+    size, batch, budget_rays, batches = BATCHED[case]
+    if batch is not None:
+        monkeypatch.setattr(PP, "BATCH_RAYS", batch)
+    if budget_rays is not None:
+        frames = bench_scene[1]
+        cs = frames.scene.clusters.with_budgets(*PC.default_budgets(
+            budget_rays, frames.scene.clusters.num_superclusters))
+        assert cs.budget_rays == budget_rays
+        monkeypatch.setattr(frames, "scene", frames.scene.with_clusters(cs))
+    off, made, mean = _frame_against_tiles(bench_scene, "parity",
+                                           4_200_000_029, bounces=3, **size)
+    assert made == batches and mean > 1e-3
+    assert off == 0.0
 
 
 @pytest.mark.card

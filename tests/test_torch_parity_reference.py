@@ -146,9 +146,9 @@ def test_port_parity_frame_equals_the_reference(built, parity, monkeypatch,
         assert built[name][1].scene.clusters.num_clusters > 2 * (
             HIER_MAXC_SHARE // 3) * 64
         # the main passes of the primaries and the first bounce's fused
-        # call build them in each of the frame's two tiles (a later call
-        # whose rays all died builds nothing)
-        assert hier >= 2 * 2
+        # call build them for the frame's one batch of two tiles (a later
+        # call whose rays all died builds nothing)
+        assert hier >= 2
     assert _pixels_off(parity, built[name][2], flat, seed, bounces) == 0.0
 
 
@@ -200,13 +200,13 @@ def _hold_fused_calls(scene, render) -> dict:
 @pytest.mark.parametrize("name", list(SCENES))
 def test_fused_answers_equal_the_queries_made_alone(built, monkeypatch, name,
                                                     bounces):
-    """Every call of a two-tile parity frame on the list tracer: the
-    primaries', and each bounce's four NEE rays with the next bounce's
-    continuation (none after the last bounce), answer as each query alone
-    does."""
+    """Every call of a two-tile parity frame (one batch) on the list
+    tracer: the primaries', and each bounce's four NEE rays with the next
+    bounce's continuation (none after the last bounce), answer as each
+    query alone does."""
     held = _hold_fused_calls(built[name][1].scene, lambda: _port_frame(
         built, name, bounces, 11, monkeypatch))
-    assert held == {q: 2 * bounces for q in range(5)}
+    assert held == {q: bounces for q in range(5)}
 
 
 @pytest.mark.card
@@ -267,35 +267,37 @@ def test_each_fault_fails_the_comparison(built, parity, monkeypatch, fault,
 
 def test_traced_parity_render_records_its_nee_spans_and_passes(built,
                                                                monkeypatch):
-    """Each bounce of each tile opens nee.light and nee.env twice under
-    its trace.bounce, once a phase ("rays", then "shade"); the list
-    tracer's main passes are one for a tile's primaries and one fused
-    call a bounce (COUNTS["parity.fused_queries"]), each under its
-    trace.primary or trace.bounce; every pass, main or escalation,
-    counts under COUNTS["query.passes"]."""
-    bounces, tiles = 2, 2
+    """Each bounce of each batch of tiles (the frame's two tiles make one)
+    opens nee.light and nee.env twice under its trace.bounce, once a
+    phase ("rays", then "shade"); the list tracer's main passes are one
+    for a batch's primaries and one fused call a bounce
+    (COUNTS["parity.fused_queries"]), each under its trace.primary or
+    trace.bounce; every pass, main or escalation, counts under
+    COUNTS["query.passes"]."""
+    bounces, batches = 2, 1
     metrics.reset_counts()
     with metrics.tracing() as spans:
         _port_frame(built, "small", bounces, 7, monkeypatch)
     by_id = {s[3]: s for s in spans}
     for name in ("nee.light", "nee.env"):
         mine = [s for s in spans if s[0] == name]
-        assert len(mine) == 2 * bounces * tiles
+        assert len(mine) == 2 * bounces * batches
         for phase in ("rays", "shade"):
             assert sorted(s[7]["bounce"] for s in mine
                           if s[7]["phase"] == phase) == sorted(
-                list(range(bounces)) * tiles)
+                list(range(bounces)) * batches)
         for s in mine:
             parent = by_id[s[4]]
             assert parent[0] == "trace.bounce"
             assert parent[7]["bounce"] == s[7]["bounce"]
     calls = [s for s in spans if s[0] == "query"]
     assert sorted(by_id[s[4]][0] for s in calls) == sorted(
-        ["trace.primary"] * tiles + ["trace.bounce"] * bounces * tiles)
+        ["trace.primary"] * batches + ["trace.bounce"] * bounces * batches)
     main = [s for s in spans if s[0] == "query.pass"
             and by_id[s[4]][0] == "query"]
-    assert len(main) == tiles * (bounces + 1)
-    assert metrics.COUNTS["parity.fused_queries"] == tiles * bounces
+    assert len(main) == batches * (bounces + 1)
+    assert metrics.COUNTS["parity.fused_queries"] == batches * bounces
+    assert metrics.COUNTS["render.batches"] == batches
     passes = sum(s[0] == "query.pass" for s in spans)
     assert metrics.COUNTS["query.passes"] == passes
 

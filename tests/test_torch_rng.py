@@ -48,14 +48,21 @@ def test_uniform_bit_exact(w, cols):
                    rng.uniform(kp, (w, cols), "cpu"))
 
 
+@pytest.mark.parametrize("tiles", [1, 3])
 @pytest.mark.parametrize("bounce,tag", [(0, 0), (0, 5), (3, 1), (7, 3)])
-def test_pathtracer_uniforms(bounce, tag):
-    """rng.uniforms == pathtracer._uniforms: fold_in(fold_in(key, bounce),
-    tag) then uniform — the per-bounce, per-purpose streams."""
-    kj = jax.random.fold_in(jax.random.PRNGKey(9), 2)   # a tile/sample fold
-    kp = rng.fold_in(rng.prng_key(9), 2)
-    _same_bits(jax_pt._uniforms(kj, bounce, tag, (300, 2)),
-               rng.uniforms(kp, bounce, tag, (300, 2), "cpu"))
+def test_pathtracer_uniforms(bounce, tag, tiles):
+    """The port's per-bounce, per-purpose streams (``_TileKeys.uniforms``)
+    == pathtracer._uniforms: fold_in(fold_in(key, bounce), tag) then
+    uniform, under each tile's key (a tile fold of one key) at its rows'
+    places, for one tile and for three traced as one wavefront."""
+    from sycl_ray_tracing_tpu_torch.models import pathtracer as port_pt
+
+    kj = [jax.random.fold_in(jax.random.PRNGKey(9), t) for t in range(tiles)]
+    kp = [rng.fold_in(rng.prng_key(9), t) for t in range(tiles)]
+    want = np.concatenate([jax_pt._uniforms(k, bounce, tag, (300, 2))
+                           for k in kj])
+    keys = port_pt._TileKeys.of(kp, 300, torch.device("cpu"))
+    _same_bits(want, keys.uniforms(bounce, tag, 2))
 
 
 def test_draws_depend_only_on_flat_index():
@@ -65,6 +72,27 @@ def test_draws_depend_only_on_flat_index():
     big = rng.uniform(k, (4096, 2), "cpu")
     small = rng.uniform(k, (512, 2), "cpu")
     assert torch.equal(big[:512], small)
+
+
+@pytest.mark.parametrize("cols", [2, 3])
+def test_uniform_rows_is_each_rows_own_draw(cols):
+    """uniform_rows under per-row key words and counters: row r of tile
+    t at place p reads what uniform(key of t, (n, cols)) draws at row p,
+    bit for bit, for three tiles' keys mixed row by row and counters
+    past 2**16."""
+    n = 40_000
+    keys = [rng.fold_in(rng.fold_in(rng.prng_key(7), t), 5) for t in (0, 1, 6)]
+    draws = [rng.uniform(k, (n, cols), "cpu") for k in keys]
+    g = torch.Generator().manual_seed(3)
+    tile = torch.randint(0, len(keys), (4096,), generator=g)
+    place = torch.randint(0, n, (4096,), generator=g)
+    place[:3] = torch.tensor([0, n - 1, (1 << 16) // cols + 1])
+    words = torch.stack(keys)[tile]
+    got = rng.uniform_rows(words[:, 0:1], words[:, 1:2],
+                           place[:, None] * cols + torch.arange(cols))
+    want = torch.stack(draws)[tile, place]
+    assert int((place * cols).max()) > 1 << 16
+    _same_bits(want.numpy(), got)
 
 
 def test_port_never_imports_jax():
